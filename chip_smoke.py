@@ -5,20 +5,32 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line; any failed check raises and exits non-zero
 before the result lines):
   1. the device and its nvidia-smi name and power limit;
-  2. build the fused Newton kernels (csrc/fused_qp.cu) with nvcc for sm_90a;
-  3. both kernels against their plain torch versions on the card, float64
-     to 1e-10 and float32 to 1e-4 relative to each output's max |value|,
-     at (B, N) in {(512, 15), (37, 15), (8, 60)} with nx = 17, nu = 4, and
-     nu in {1, 2} at B = 8; per-call times at (512, 15) float32;
-  4. solve_qp with kkt="fused" against kkt="riccati" on rocket QPs, B = 512,
-     float32: identical iteration counts, X/U within 1e-4;
+  2. build every kernel (csrc/fused_qp.cu, fused_ipm.cu, fused_response.cu)
+     with nvcc for sm_90a;
+  3. each kernel against its plain torch version on the card, relative to
+     each output's max |value|: the Newton kernels K1/K2 float64 to 1e-10
+     and float32 to 1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with
+     nx = 17, nu = 4, and nu in {1, 2} at B = 8; the whole-iteration kernel
+     K6 at the same (B, N) with ni = 42, ni_f = 34 (a lane marked done and a
+     lane whose step is not finite included); the response kernel K4 at
+     B in {512, 37}, float32 to 1e-4; per-call times of every kernel and its
+     plain version at (512, 15) float32, beside the least time the card
+     could take (bytes over 3.35 TB/s, operations over the CUDA-core peak);
+  4. solve_qp on rocket QPs at B = 512: kkt="fused" against kkt="riccati"
+     in float32 (identical iteration counts, X/U within 1e-4); kkt=
+     "fused_iter" against "riccati" in float64 (identical iteration counts
+     on every lane) and float32 (success identical, X/U within 1e-4);
   5. 3 closed-loop MPC steps at N = 6, B = 8, float64 on the card (kernels)
      against the CPU (plain versions): identical success and QP iterations,
      X/U within 1e-8;
   6. the bench twin (robust_nonlinear_mpc_torch.bench) at its full
-     configuration: the main path. Every launch counter is zeroed before it
-     and read after it.
-The last lines are the kernels record, the nvidia-smi line and
+     configuration: the main path (K1, K2);
+  7. the bench twin in the fused-kernel configuration (kkt="fused_iter",
+     response="fused"): the second path (K6, K4). Both configurations start
+     from one SQP seed and run twice, default, fused, fused, default, each
+     with its stage breakdown and device busy share after its first run.
+Every launch counter is zeroed just before each bench run and read just
+after it. The last lines are the kernels record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
@@ -37,8 +49,15 @@ from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
     X0,
     make_rocket_problem,
 )
-from robust_nonlinear_mpc_torch.ops import fused_qp
-from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions, QPData, QPStatics, _curvature, solve_qp
+from robust_nonlinear_mpc_torch.ops import cuda_lib, fused_qp, fused_response
+from robust_nonlinear_mpc_torch.ops.qp_ipm import (
+    IPMOptions,
+    QPData,
+    QPStatics,
+    _curvature,
+    _residuals,
+    solve_qp,
+)
 from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
@@ -49,8 +68,21 @@ TPU_SOURCE = "robust_nonlinear_mpc_tpu/ops/pallas_qp.py"
 REPLACES = {
     "factor_predictor": f"{TPU_SOURCE}:161",
     "resolve": f"{TPU_SOURCE}:293",
+    "ipm_iteration": f"{TPU_SOURCE}:1234",
+    "fused_response": "robust_nonlinear_mpc_tpu/ops/pallas_response.py:40",
+}
+SOURCES = {
+    "factor_predictor": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
+    "resolve": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
+    "ipm_iteration": "robust_nonlinear_mpc_torch/csrc/fused_ipm.cu",
+    "fused_response": "robust_nonlinear_mpc_torch/csrc/fused_response.cu",
 }
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, CUDA-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# the rocket's widths
+NX, NU, NI, NI_F = 17, 4, 42, 34
 
 
 def say(msg):
@@ -112,21 +144,33 @@ def compare_kernels(Bsz, N, nu, dtype, nx=17):
 KERNEL_CASES = [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)]
 
 
-def check_kernels():
-    """Phase 3: both kernels against their plain versions on the card."""
-    worst = {}
-    main_err = {}
-    for dtype in (torch.float64, torch.float32):
-        for Bsz, N, nu in KERNEL_CASES:
-            for (kname, oname), (r, ab) in compare_kernels(Bsz, N, nu, dtype).items():
-                if not (r <= TOL[dtype]):
-                    fail(f"{kname} {oname} B={Bsz} N={N} nu={nu} {dtype}: rel err {r:.3e}")
-                worst[(kname, dtype)] = max(worst.get((kname, dtype), 0.0), r)
-                if (Bsz, N, nu, dtype) == (512, 15, 4, torch.float32):
-                    main_err[kname] = max(main_err.get(kname, 0.0), ab)
-    for (kname, dtype), r in worst.items():
-        say(f"[3] {kname} {dtype}: worst rel err {r:.3e} (tol {TOL[dtype]:g})")
-    return main_err
+KERNEL_SYMBOLS = {
+    "factor_predictor": "factor_predictor_kernel",
+    "resolve": "resolve_kernel",
+    "ipm_iteration": "ipm_iter_kernel",
+    "fused_response": "response_kernel",
+}
+
+
+def kernel_ms(fn, kernel, n):
+    """Device time of one launch of the kernel, from torch.profiler over n
+    calls of its wrapper (what the wrapper runs around it, such as K6's
+    curvature products, is not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and KERNEL_SYMBOLS[kernel] in ev.key]
+    count = sum(ev.count for ev in rows)
+    if count != n:
+        fail(f"the profiler saw {count} launches of {kernel}, expected {n}")
+    return sum(ev.self_device_time_total for ev in rows) / 1e3 / n
 
 
 def cuda_ms(fn, n):
@@ -141,26 +185,196 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
+    """Arguments of one whole IPM iteration (`fused_qp.ipm_iteration`): a
+    random problem, an interior iterate and its residuals, made with numpy.
+    Lane 1 is marked done; lane 2 has an infinite dynamics offset, so its
+    step is reverted."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    stat = QPStatics(
+        Hx=t(2 * np.eye(nx)), Hu=t(2 * np.eye(nu)), HxN=t(6 * np.eye(nx)),
+        Gx=t(rng.standard_normal((ni, nx))), Gu=t(rng.standard_normal((ni, nu))),
+        Gf=t(rng.standard_normal((ni_f, nx))),
+    ).per_stage(N)
+    c = 0.01 * rng.standard_normal((Bsz, N, nx))
+    h = 4.0 + np.abs(rng.standard_normal((Bsz, N, ni)))
+    hf = 4.0 + np.abs(rng.standard_normal((Bsz, ni_f)))
+    scale_p = 1.0 + np.abs(np.concatenate([c.reshape(Bsz, -1), h.reshape(Bsz, -1), hf], 1)).max(1)
+    data = QPData(
+        A=t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))),
+        B=t(0.2 * rng.standard_normal((Bsz, N, nx, nu))), c=t(c),
+        qx=t(0.1 * rng.standard_normal((Bsz, N + 1, nx))),
+        qu=t(0.1 * rng.standard_normal((Bsz, N, nu))), h=t(h), hf=t(hf), xinit=None,
+    )
+    it = [t(0.3 * rng.standard_normal((Bsz, N + 1, nx))), t(0.3 * rng.standard_normal((Bsz, N, nu))),
+          t(0.5 + np.abs(rng.standard_normal((Bsz, N, ni)))),
+          t(0.5 + np.abs(rng.standard_normal((Bsz, N, ni)))),
+          t(0.5 + np.abs(rng.standard_normal((Bsz, ni_f)))),
+          t(0.5 + np.abs(rng.standard_normal((Bsz, ni_f)))),
+          t(0.1 * rng.standard_normal((Bsz, N, nx)))]
+    req, rineq, rineq_f, rx, rxN, ru = _residuals(stat, data, *it)
+    rx_pad = torch.cat([torch.zeros_like(rx[:, :1]), rx], dim=1)
+    done = torch.zeros(Bsz, dtype=torch.bool, device=device)
+    if Bsz >= 3:
+        done[1] = True
+        data.c[2, 0, 0] = float("inf")
+    X, U, lam, s, lam_f, s_f, nu_dyn = it
+    args = [data.A, data.B, data.c, data.qx, data.qu, data.h, data.hf, stat.Gx, stat.Gu,
+            stat.Gf, stat.Hx, stat.Hu, stat.HxN, lam / s, lam_f / s_f, *it,
+            req, rineq, rineq_f, rx_pad, rxN, ru, t(scale_p), done]
+    return args, dict(tau=0.995, n_comp=N * ni + ni_f)
+
+
+IPM_OUTPUTS = ("X", "U", "lam", "s", "lam_f", "s_f", "nu_dyn", "req", "rineq", "rineq_f",
+               "rx_pad", "rxN", "ru", "res", "bad")
+
+
+def compare_ipm(Bsz, N, dtype):
+    """K6 against its plain version on the same card inputs."""
+    args, kw = ipm_inputs(Bsz, N, dtype, "cuda", seed=Bsz + N)
+    got = fused_qp.ipm_iteration(*args, **kw)
+    ref = fused_qp._plain_ipm_iter(*args, **kw)
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b in zip(IPM_OUTPUTS, got, ref):
+        if name == "bad":
+            if not torch.equal(a, b):
+                fail(f"ipm_iteration B={Bsz} N={N} {dtype}: reverted lanes differ")
+            continue
+        if not bool(torch.isfinite(a).all()):
+            fail(f"ipm_iteration {name} B={Bsz} N={N} {dtype}: not finite")
+        out[("ipm_iteration", name)] = rel_err(a, b)
+    if Bsz >= 3 and got[-1][:3].tolist() != [False, False, True]:
+        fail(f"ipm_iteration B={Bsz} N={N} {dtype}: lane 2 was not reverted")
+    return out
+
+
+def response_inputs(Bsz, N, device, seed, nx=NX, nu=NU, nw=NX, ni=NI, ni_f=NI_F):
+    """Arguments of the fused response (float32): random stable dynamics,
+    gains with zero columns j > k, random constraint blocks."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    K = 0.05 * rng.standard_normal((Bsz, N, N + 1, nu, nx))
+    K *= (np.arange(N + 1)[None, :] <= np.arange(N)[:, None])[None, :, :, None, None]
+    return [t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))),
+            t(0.2 * rng.standard_normal((Bsz, N, nx, nu))),
+            t(0.01 * rng.standard_normal((N + 1, nx, nw))), t(K),
+            t(rng.standard_normal((ni, nx))), t(rng.standard_normal((ni, nu))),
+            t(rng.standard_normal((ni_f, nx))), t(1e2 * np.eye(nx)), t(1e2 * np.eye(nu)),
+            t(1e2 * np.eye(nx))]
+
+
+RESPONSE_OUTPUTS = ("Phi_x", "Phi_u", "beta", "beta_f", "backoff", "backoff_f", "tube")
+
+
+def compare_response(Bsz, N=15):
+    args = response_inputs(Bsz, N, "cuda", seed=Bsz)
+    got = fused_response.fused_response(*args)
+    ref = fused_response._plain_fused_response(*args)
+    torch.cuda.synchronize()
+    return {("fused_response", name): rel_err(a, b)
+            for name, a, b in zip(RESPONSE_OUTPUTS, got, ref)}
+
+
+def check_kernels():
+    """Phase 3: every kernel against its plain version on the card. Returns
+    each kernel's largest absolute error at the main path's shape."""
+    cases = [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_kernels(B, N, nu, dtype))
+             for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
+    cases += [(dtype, (B, N), lambda B=B, N=N, dtype=dtype: compare_ipm(B, N, dtype))
+              for dtype in (torch.float64, torch.float32) for B, N in ((512, 15), (37, 15), (8, 60))]
+    cases += [(torch.float32, (B, 15), lambda B=B: compare_response(B)) for B in (512, 37)]
+    worst, main_err = {}, {}
+    for dtype, (Bsz, N), run in cases:
+        for (kname, oname), (r, ab) in run().items():
+            if not (r <= TOL[dtype]):
+                fail(f"{kname} {oname} B={Bsz} N={N} {dtype}: rel err {r:.3e}")
+            worst[(kname, dtype)] = max(worst.get((kname, dtype), 0.0), r)
+            if (Bsz, N, dtype) == (512, 15, torch.float32):
+                main_err[kname] = max(main_err.get(kname, 0.0), ab)
+    for (kname, dtype), r in worst.items():
+        say(f"[3] {kname} {dtype}: worst rel err {r:.3e} (tol {TOL[dtype]:g})")
+    return main_err
+
+
+def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dtype=torch.float32):
+    """(bound_ms, bound_by): the least time the card could take for one call
+    at these shapes, the larger of its bytes (each input read once, each
+    output written once) over the memory rate and its operations over the
+    CUDA-core peak for the type."""
+    nxx, nxu, nuu = nx * nx, nx * nu, nu * (nu + 1) // 2
+    # per lane: Riccati stage (PA, PB, w, Fxx, Fxu', Fuu, f_u, pnew, the
+    # nu x nu solves, P and p updates), feedforward stage, forward stage
+    fact = 4 * nx ** 3 + 4 * nxx * nu + 4 * nxx + 2 * nu * nu * nx + 2 * nxu \
+        + (nx + 1) * 6 * nu * nu + 4 * nxx * nu + 2 * nxu
+    ff = 4 * nxx + 4 * nxu + 6 * nu * nu
+    fwd = 4 * nxx + 4 * nxu
+    newton_in = N * (nxx + nxu) + 2 * N * nx + N * nu + nx       # A, B, rbx, rbxN, rbu, req
+    newton_out = (N + 1) * nx + N * nu + N * nx                  # dX, dU, dnu
+    factors = N * (2 * nxu + 2 * nuu + nxx)                      # K, Fxu', triangles, Pseq
+    curv = N * (nxx + nu * nu + nxu) + nxx                       # Cxx, Cuu, Cxu, PN
+    size = 4 if dtype == torch.float32 else 8
+    if name == "factor_predictor":
+        words, flops = Bsz * (newton_in + curv + newton_out + factors), Bsz * N * (fact + fwd)
+    elif name == "resolve":
+        words, flops = Bsz * (newton_in + factors + newton_out), Bsz * N * (ff + fwd)
+    elif name == "ipm_iteration":
+        Nni = N * ni
+        iterate = (N + 1) * nx + N * nu + 2 * Nni + 2 * ni_f + N * nx
+        resid = 2 * N * nx + Nni + ni_f + nx + N * nu
+        data = N * (nxx + nxu) + N * nx + (N + 1) * nx + N * nu + Nni + ni_f + 1
+        shared = N * (ni * (nx + nu) + nxx + nu * nu) + ni_f * nx + nxx
+        words = Bsz * (data + curv + 2 * iterate + 2 * resid + 1) + shared
+        rhs = 2 * Nni * (nx + nu) + 2 * ni_f * nx
+        resid_flops = N * (4 * nxx + 2 * nxu + 2 * ni * nx) + Nni * 2 * (nx + nu) \
+            + 2 * ni_f * nx + 2 * nxx + 2 * ni_f * nx + N * (2 * nu * nu + 2 * ni * nu + 2 * nxu)
+        flops = Bsz * (N * (fact + ff + 2 * fwd) + 4 * rhs + resid_flops + 40 * (Nni + ni_f))
+    else:   # fused_response, always float32
+        size = 4
+        cols = N * (N + 1) // 2
+        words = Bsz * (N * (nxx + nxu) + N * (N + 1) * nu * nx
+                       + (N + 1) ** 2 * nx * nw + N * (N + 1) * nu * nw
+                       + N * N * ni + (N + 1) * ni_f + N * ni + ni_f + 1) \
+            + (N + 1) * nx * nw + (ni + ni_f) * nx + ni * nu + 2 * nxx + nu * nu
+        per_col = 2 * nu * nx * nw + 2 * ni * nw * (nx + nu + 1) + 2 * nxx * nw \
+            + 2 * nu * nu * nw + 2 * nx * nw * (nx + nu)
+        flops = Bsz * (cols * per_col + (N + 1) * (2 * ni_f * nw * (nx + 1) + 2 * nxx * nw))
+        dtype = torch.float32
+    t_bytes = 1e3 * words * size / PEAK_BYTES
+    t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def time_kernels():
-    """Per-call times at the main path's shape (B=512, N=15, f32)."""
-    mats, rhs, rhs2 = newton_inputs(512, 15, 17, 4, torch.float32, "cuda", seed=1)
+    """Per-call times at the main path's shape (B=512, N=15, f32), in the
+    order plain, kernel, kernel, plain: the kernel's device time (profiler),
+    the plain version's and the wrapper's by CUDA events (the wrapper's
+    includes its allocations, its torch ops and any host gaps)."""
+    mats, rhs, rhs2 = newton_inputs(512, 15, NX, NU, torch.float32, "cuda", seed=1)
     A, B = mats[0], mats[1]
     fact = fused_qp.factor_predictor(*mats, *rhs)[3]
-    pfact = fused_qp._plain_factor_predictor(*mats, *rhs)[3]
+    args, kw = ipm_inputs(512, 15, torch.float32, "cuda", seed=2)
+    rargs = response_inputs(512, 15, "cuda", seed=2)
+    pairs = {
+        "factor_predictor": (lambda: fused_qp.factor_predictor(*mats, *rhs),
+                             lambda: fused_qp._plain_factor_predictor(*mats, *rhs)),
+        "resolve": (lambda: fused_qp.resolve(A, B, fact, *rhs2),
+                    lambda: fused_qp._plain_resolve(A, B, fact, *rhs2)),
+        "ipm_iteration": (lambda: fused_qp.ipm_iteration(*args, **kw),
+                          lambda: fused_qp._plain_ipm_iter(*args, **kw)),
+        "fused_response": (lambda: fused_response.fused_response(*rargs),
+                           lambda: fused_response._plain_fused_response(*rargs)),
+    }
     t = {}
-    # plain, kernel, kernel, plain
-    p1 = cuda_ms(lambda: fused_qp._plain_factor_predictor(*mats, *rhs), 10)
-    k1 = cuda_ms(lambda: fused_qp.factor_predictor(*mats, *rhs), 50)
-    k2 = cuda_ms(lambda: fused_qp.factor_predictor(*mats, *rhs), 50)
-    p2 = cuda_ms(lambda: fused_qp._plain_factor_predictor(*mats, *rhs), 10)
-    t["factor_predictor"] = (min(k1, k2), min(p1, p2))
-    p1 = cuda_ms(lambda: fused_qp._plain_resolve(A, B, pfact, *rhs2), 10)
-    k1 = cuda_ms(lambda: fused_qp.resolve(A, B, fact, *rhs2), 50)
-    k2 = cuda_ms(lambda: fused_qp.resolve(A, B, fact, *rhs2), 50)
-    p2 = cuda_ms(lambda: fused_qp._plain_resolve(A, B, pfact, *rhs2), 10)
-    t["resolve"] = (min(k1, k2), min(p1, p2))
-    for k, (km, pm) in t.items():
-        say(f"[3] {k} at B=512 N=15 f32: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    for k, (kern, plain) in pairs.items():
+        p1 = cuda_ms(plain, 5)
+        k1, k2 = kernel_ms(kern, k, 30), kernel_ms(kern, k, 30)
+        w = cuda_ms(kern, 30)
+        p2 = cuda_ms(plain, 5)
+        t[k] = (min(k1, k2), min(p1, p2))
+        say(f"[3] {k} at B=512 N=15 f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
+            f"plain {t[k][1]:.4f} ms, bound " + "{:.4f} ms ({})".format(*kernel_bound(k)))
     return t
 
 
@@ -194,6 +408,29 @@ def check_solve_qp():
         fail("iteration counts differ between kkt='fused' and kkt='riccati'")
     if not (ex <= 1e-4 and eu <= 1e-4):
         fail("fused and riccati solutions differ by more than 1e-4")
+
+
+def check_fused_iter():
+    """Phase 4: kkt="fused_iter" (K6) against kkt="riccati" on the card."""
+    for dtype in (torch.float64, torch.float32):
+        stat, data = rocket_qps(512, 15, dtype, "cuda", seed=5)
+        opts = IPMOptions(max_iter=30, tol=3e-5)
+        ric = solve_qp(stat, data, opts._replace(kkt="riccati"))
+        it = solve_qp(stat, data, opts._replace(kkt="fused_iter"))
+        torch.cuda.synchronize()
+        same = int((ric.iters == it.iters).sum())
+        ex, _ = rel_err(it.X, ric.X)
+        eu, _ = rel_err(it.U, ric.U)
+        say(f"[4] solve_qp fused_iter vs riccati B=512 {dtype}: iters equal on {same}/512 "
+            f"lanes, mean iters {ric.iters.float().mean():.2f}/{it.iters.float().mean():.2f}, "
+            f"success {ric.success.float().mean():.4f}/{it.success.float().mean():.4f}, "
+            f"X rel err {ex:.2e}, U rel err {eu:.2e}")
+        if dtype == torch.float64 and same != 512:
+            fail("float64 iteration counts differ between kkt='fused_iter' and kkt='riccati'")
+        if not torch.equal(ric.success, it.success):
+            fail("success differs between kkt='fused_iter' and kkt='riccati'")
+        if not (ex <= 1e-4 and eu <= 1e-4):
+            fail("fused_iter and riccati solutions differ by more than 1e-4")
 
 
 def check_closed_loop():
@@ -237,6 +474,57 @@ def check_closed_loop():
             fail(f"closed-loop step {i} differs between the card and the CPU")
 
 
+def run_bench(label, wl):
+    """One bench twin run (warm-in, timed window, B = 1 latency loop) of a
+    built workload, its launch counts zeroed just before and read just
+    after."""
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    record, carry = bench.run(wl)
+    launches = bench.launch_counts()
+    say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
+        f"ran in {time.perf_counter() - t0:.1f} s, launches {launches}")
+    print(json.dumps(record), flush=True)
+    if record["success_fraction"] != 1.0 or not record["finite"]:
+        fail(f"bench twin [{label}]: success_fraction must be 1.0 and the state finite")
+    return record, carry, launches
+
+
+def breakdown(label, wl, carry):
+    """Stage breakdown and device busy share of one configuration."""
+    stages = bench.stage_breakdown(wl, carry, wl.w_seq[0])
+    prof = bench.profile_kernels(wl, carry, wl.w_seq)
+    say(f"[{label}] stage ms {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    say(f"[{label}] profiler: {prof['steps']} steps, wall (unprofiled) {prof['wall_ms']:.2f} ms, "
+        f"device kernels {prof['device_kernel_ms']:.2f} ms, busy share {prof['device_busy_share']}")
+    return {"stages": stages, "profile": prof}
+
+
+def bench_phases():
+    """Phases 6 and 7: the main path (K1, K2) and the fused-kernel path (K6,
+    K4). Both start from one SQP seed and run twice, in the order default,
+    fused, fused, default, so the host's drift shows in the pairs. Returns
+    each kernel's launches in the first run of its path."""
+    t0 = time.perf_counter()
+    wls = {"6": bench.build_workload()}
+    wls["7"] = bench.build_workload(kkt="fused_iter", response="fused", seed_from=wls["6"])
+    say(f"[6] bench workloads built (one SQP seed) in {time.perf_counter() - t0:.1f} s")
+    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response")}
+    launches, profile = {}, {"6": {"records": []}, "7": {"records": []}}
+    for label in ("6", "7", "7", "6"):
+        record, carry, counts = run_bench(label, wls[label])
+        kernels = path_kernels[label]
+        if min(counts[k] for k in kernels) <= 0:
+            fail(f"the bench path [{label}] did not launch {kernels}: {counts}")
+        profile[label]["records"].append(record)
+        if "stages" not in profile[label]:
+            launches.update({k: counts[k] for k in kernels})
+            profile[label].update(breakdown(label, wls[label], carry))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_profile.json").write_text(json.dumps(profile, indent=1))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -247,46 +535,27 @@ def main():
     bench.require_cuda()
 
     t0 = time.perf_counter()
-    fused_qp.build_extension(verbose=True)
-    say(f"[2] built {fused_qp.SOURCE.name} for sm_90a in {time.perf_counter() - t0:.1f} s")
+    cuda_lib.build_extension(verbose=True)
+    say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     main_err = check_kernels()
     times = time_kernels()
     check_solve_qp()
+    check_fused_iter()
     check_closed_loop()
 
-    # phase 6: the main path
-    fused_qp.reset_launch_counts()
-    t0 = time.perf_counter()
-    wl = bench.build_workload()
-    record, carry = bench.run(wl)
-    launches = fused_qp.launch_counts()
-    say(f"[6] bench twin ran in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(record), flush=True)
-    if record["success_fraction"] != 1.0 or not record["finite"]:
-        fail("bench twin: success_fraction must be 1.0 and the state finite")
-    if min(launches.values()) <= 0:
-        fail(f"the main path did not launch every kernel: {launches}")
+    launches = bench_phases()
 
-    stages = bench.stage_breakdown(wl, carry, wl.w_seq[0])
-    prof = bench.profile_kernels(wl, carry, wl.w_seq)
-    say(f"[6] stage ms {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
-    say(f"[6] profiler: {prof['steps']} steps, wall (unprofiled) {prof['wall_ms']:.2f} ms, device kernels "
-        f"{prof['device_kernel_ms']:.2f} ms, busy share {prof['device_busy_share']}")
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "chip_smoke_profile.json").write_text(
-        json.dumps({"record": record, "stages": stages, "profile": prof}, indent=1)
-    )
-
-    kernels = [
-        {
-            "name": k, "route": "cuda",
-            "source": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
-            "replaces": REPLACES[k], "launches": launches[k],
-            "max_abs_err": main_err[k], "ms": times[k][0], "plain_ms": times[k][1],
-        }
-        for k in ("factor_predictor", "resolve")
-    ]
+    kernels = []
+    for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response"):
+        bound_ms, bound_by = kernel_bound(k)
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+            "launches": launches[k], "max_abs_err": main_err[k], "ms": times[k][0],
+            "plain_ms": times[k][1], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,6 +12,13 @@ QP tolerance 3e-5, every lane seeded by the SQP with the chunked soft-slack
 fallback. The tube synthesis runs at full float32 ("highest"): the JAX
 package's reduced-precision tube mode is not ported, and TF32 stays off.
 
+`build_workload(kkt=..., response=...)` picks the IPM's Newton path
+("fused", the default, or "fused_iter": the whole iteration as one kernel;
+"riccati") and the response ("streaming", the default; "materialized": the
+Phi-materializing stages; "fused": the fused response kernel), the twins of
+the JAX bench's RNM_BENCH_KKT and RNM_BENCH_STREAMING. The fused-kernel
+configuration is kkt="fused_iter", response="fused".
+
 Prints ONE JSON line. Usage: python -m robust_nonlinear_mpc_torch.bench
 """
 
@@ -25,9 +32,20 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from robust_nonlinear_mpc_torch.ops import fused_qp
+from robust_nonlinear_mpc_torch.ops import fused_qp, fused_response
 
 METRIC = "rocket_sls_mpc_solves_per_s"
+RESPONSES = ("streaming", "materialized", "fused")
+
+
+def reset_launch_counts():
+    fused_qp.reset_launch_counts()
+    fused_response.reset_launch_counts()
+
+
+def launch_counts():
+    """Launches of every CUDA kernel of the port since the last reset."""
+    return {**fused_qp.launch_counts(), **fused_response.launch_counts()}
 
 
 class BenchWorkload(NamedTuple):
@@ -43,6 +61,7 @@ class BenchWorkload(NamedTuple):
     dtype: Any
     device: Any
     n_soft_fallback: int
+    response: str
 
 
 def gpu_identity():
@@ -89,9 +108,15 @@ def seed_nominal(m, solver, x0s):
 
 
 def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
-                   n_warm=30, N=15) -> BenchWorkload:
+                   n_warm=30, N=15, kkt="fused", response="streaming",
+                   seed_from: BenchWorkload | None = None) -> BenchWorkload:
     """The bench's workload; the defaults are the benchmarked configuration
-    (the CPU tests build it at a tiny size)."""
+    (the CPU tests build it at a tiny size). `seed_from`: a workload of the
+    same size whose SQP seed is reused (the seed does not depend on `kkt` or
+    `response`), so that two configurations start from the same lanes
+    without seeding twice."""
+    if response not in RESPONSES:
+        raise ValueError(f"response must be one of {RESPONSES}, got {response!r}")
     from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
         X0,
         make_rocket_problem,
@@ -104,18 +129,26 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
     qp_iters, cold_cap = 6, 15
     solver.opts = solver.opts._replace(
         verbose=False,
-        ipm=IPMOptions(max_iter=cold_cap, tol=3e-5, kkt="fused"),
+        ipm=IPMOptions(max_iter=cold_cap, tol=3e-5, kkt=kkt),
         adaptive_ipm_budget=(qp_iters, cold_cap),
-        ipm_first=IPMOptions(max_iter=8, tol=1e-3, kkt="fused"),
-        streaming_response=True, recycle_eta=True, recycle_warm_qp=True,
+        ipm_first=IPMOptions(max_iter=8, tol=1e-3, kkt=kkt),
+        streaming_response=response == "streaming",
+        use_pallas_response=response == "fused",
+        recycle_eta=True, recycle_warm_qp=True,
     )
     rng = np.random.default_rng(0)
     x0s = torch.as_tensor(
         np.array(X0)[None] + 0.02 * rng.standard_normal((B, m.nx)), dtype=dtype, device=device
     )
-    Xs, Us, n_fb = seed_nominal(m, solver, x0s)
+    if seed_from is None:
+        Xs, Us, n_fb = seed_nominal(m, solver, x0s)
+    else:
+        if not torch.equal(seed_from.carry[3], x0s):
+            raise ValueError("seed_from was built for other initial states")
+        Xs, Us, n_fb = seed_from.carry[0], seed_from.carry[1], seed_from.n_soft_fallback
     persist = FastSLSPersist.init(N, m.nx, m.nu, m.ni, m.ni_f, m.nw, batch=B,
-                                  dtype=dtype, device=device, store_phi=False)
+                                  dtype=dtype, device=device,
+                                  store_phi=response != "streaming")
     w_seq = torch.as_tensor(
         rng.uniform(-1.0, 1.0, (max(1, n_warm) + n_rep, B, m.nw)), dtype=dtype, device=device
     )
@@ -124,6 +157,7 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
         carry=(Xs, Us, persist, x0s), w_seq=w_seq, B=B, n_rep=n_rep,
         n_warm=n_warm, budget_mode=f"adaptive({qp_iters},{cold_cap})",
         dtype=dtype, device=torch.device(device), n_soft_fallback=n_fb,
+        response=response,
     )
 
 
@@ -137,12 +171,10 @@ def stage_breakdown(wl: BenchWorkload, carry, w, reps=5):
     """Median host-clock time (ms) of the stages of one step on the given
     state, synchronized after every stage. `fast_sls` is the whole fast-SLS
     solve (backward Riccati + response + the warm-started QP + eta refresh),
-    so its QP part is `fast_sls - backward_riccati - response`."""
-    from robust_nonlinear_mpc_torch.ops.sls_kernels import (
-        backward_solve_folded,
-        response_streaming_folded,
-    )
-    from robust_nonlinear_mpc_torch.solvers.fast_sls import fast_sls_solve
+    so its QP part is `fast_sls - backward_riccati - response`. `response`
+    is the configured one."""
+    from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_folded
+    from robust_nonlinear_mpc_torch.solvers.fast_sls import compute_response, fast_sls_solve
 
     solver = wl.solver
     X, U, persist, x = carry
@@ -164,9 +196,8 @@ def stage_breakdown(wl: BenchWorkload, carry, w, reps=5):
         A, B = dev[0], dev[1]
         K = timed("backward_riccati", lambda: backward_solve_folded(
             A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1])
-        timed("response", lambda: response_streaming_folded(
-            A, B, prob.E, K, prob.stat.Gx, prob.stat.Gu, prob.stat.Gf, prob.regs,
-            fopts.epsilon_backoff))
+        timed("response", lambda: compute_response(
+            prob, A, B, K, fopts, persist.Phi_x, persist.Phi_u))
         timed("fast_sls", lambda: fast_sls_solve(prob, *dev, persist, fopts))
         timed("step", lambda: wl.mpc_step(carry, w))
     out = {k: float(np.median(v)) for k, v in samples.items()}
@@ -222,13 +253,13 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 50):
         carry, out = step(carry, wl.w_seq[i])
     torch.cuda.synchronize()
 
-    before = fused_qp.launch_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     for i in range(wl.n_rep):
         carry, out = step(carry, wl.w_seq[n_warm + i])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {k: v - before[k] for k, v in fused_qp.launch_counts().items()}
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
 
     ok, qp_iters = out[6], out[7]
     solves_per_s = wl.B * wl.n_rep / (t1 - t0)
@@ -268,6 +299,7 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 50):
         "power_limit_w": limit_w,
         "tube_precision": "highest",
         "kkt": wl.solver.opts.ipm.kkt,
+        "response": wl.response,
         "kernel_launches": launches,
         "soft_fallback_lanes": wl.n_soft_fallback,
         "single_step_latency_ms": round(1e3 * float(np.median(lats)), 3),

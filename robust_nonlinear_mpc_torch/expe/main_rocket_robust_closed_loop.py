@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from robust_nonlinear_mpc_torch.utils.device import checked_device
+
 X0 = [
     1.75729, 4.15951, 4.72757,
     -0.18913, -0.38367, -0.08697,
@@ -20,11 +22,13 @@ X0 = [
 ]
 
 
-def make_rocket_problem(N=15, device=None, dtype=torch.float64):
-    """Model + solver with the reference rocket experiment settings."""
+def make_rocket_problem(N=15, device="cuda", dtype=torch.float64):
+    """Model + solver with the reference rocket experiment settings, on the
+    card unless `device` says otherwise."""
     from robust_nonlinear_mpc_torch.models.rocket import Rocket
     from robust_nonlinear_mpc_torch.solvers.scp_sls import SCPSLSSolver
 
+    device = checked_device(device)
     m = Rocket(dtype=dtype, device=device)
     Q = np.diag(
         [10.0, 10.0, 10.0,

@@ -15,9 +15,10 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist, QPWarm
 from robust_nonlinear_mpc_torch.solvers.scp_sls import SCPSLSOptions, SCPSLSSolver
 from robust_nonlinear_mpc_torch.solvers.sqp import SQPOptions
+from robust_nonlinear_mpc_torch.utils.device import checked_device
 
-# the JAX package's name for the fused Newton kernels -> the port's name
-_KKT_NAMES = {"pallas": "fused"}
+# the JAX package's names for the fused kernels -> the port's names
+_KKT_NAMES = {"pallas": "fused", "pallas_iter": "fused_iter"}
 
 
 def tree_to_numpy(tree):
@@ -56,14 +57,17 @@ def _scp_options(d) -> SCPSLSOptions:
     return SCPSLSOptions(**d)
 
 
-def solver_from_numpy(d, *, device=None, dtype=torch.float64) -> SCPSLSSolver:
+def solver_from_numpy(d, *, device="cuda", dtype=torch.float64) -> SCPSLSSolver:
     """Build the port's solver from the values of a JAX `SCPSLSSolver`.
 
     `d` holds "N", "Q", "R", "Qf", "Q_reg", "R_reg", "Q_reg_f", the model's
     "E" and "dt", and "options" (`options_to_plain(solver.opts)`). The model
-    is the rocket, the one model the port has.
+    is the rocket, the one model the port has. On the card unless `device`
+    says otherwise.
     """
     from robust_nonlinear_mpc_torch.models.rocket import Rocket
+
+    device = checked_device(device)
 
     model = d.get("model", "rocket")
     if model != "rocket":
@@ -91,9 +95,11 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def carry_from_numpy(d, *, device=None, dtype=torch.float64):
+def carry_from_numpy(d, *, device="cuda", dtype=torch.float64):
     """dict {"X", "U", "persist", "x"} (batch-leading numpy arrays, persist
-    and its "qp_warm" by field name) -> the port's carry (X, U, persist, x)."""
+    and its "qp_warm" by field name) -> the port's carry (X, U, persist, x),
+    on the card unless `device` says otherwise."""
+    device = checked_device(device)
     p = dict(d["persist"])
     qw = QPWarm(**{k: _tensor(v, dtype, device) for k, v in p.pop("qp_warm").items()})
     persist = FastSLSPersist(

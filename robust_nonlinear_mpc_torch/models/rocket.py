@@ -21,6 +21,7 @@ from robust_nonlinear_mpc_torch.models.base import (
     box_polytope,
     terminal_box_polytope,
 )
+from robust_nonlinear_mpc_torch.utils.device import checked_device
 from robust_nonlinear_mpc_torch.utils.quaternion import (
     quaternion_derivative,
     rotation_matrix_from_quaternion,
@@ -30,8 +31,9 @@ HOVER_THRUST = 11.3796  # gravity-compensation offset
 
 
 class Rocket(Model):
-    def __init__(self, *, dtype=torch.float64, device=None):
+    def __init__(self, *, dtype=torch.float64, device="cuda"):
         super().__init__()
+        device = checked_device(device)
         self.mass = 1.16
         self.grav = 9.81
         self.Jx, self.Jy, self.Jz = 0.00210, 0.10000, 0.10000

@@ -1,5 +1,5 @@
-"""Fused IPM Newton solves: two hand-written CUDA kernels and their plain
-torch twins. Counterpart of `robust_nonlinear_mpc_tpu/ops/pallas_qp.py`.
+"""Fused IPM kernels, hand-written in CUDA, and their plain torch twins.
+Counterpart of `robust_nonlinear_mpc_tpu/ops/pallas_qp.py`.
 
 Per Mehrotra iteration the IPM (`ops/qp_ipm.py`, `IPMOptions(kkt="fused")`)
 makes two Newton solves against one Riccati factorization:
@@ -13,33 +13,43 @@ makes two Newton solves against one Riccati factorization:
   * `resolve` replaces the Pallas `_resolve_kernel`: the corrector's
     feedforward sweep against the cached factors, then the forward sweep.
 
-Both wrappers are batch-leading and keep the JAX wrapper contract
+With `IPMOptions(kkt="fused_iter")` the whole iteration is one kernel:
+
+  * `ipm_iteration` replaces the Pallas `_ipm_iter_kernel`: rhs assembly,
+    both Newton solves (the stage loops of the two kernels above), slack and
+    dual recovery, the fraction-to-boundary steps, sigma, the update with
+    the done-lane freeze, fresh residuals, the KKT scalar and the revert of
+    non-finite lanes. Contract of the JAX `_ipm_iter_batched`.
+
+The wrappers are batch-leading and keep the JAX wrapper contracts
 (`_factor_predictor_batched`): outputs (dX, dU, dnu, fact) with
 fact = (K (B,N,nu,nx), FxuT (B,N,nu,nx), Fuu_tri (B,N,nuu),
 Fiv_tri (B,N,nuu), Pseq (B,N,nx,nx)), the triangles in `_tri(nu)` order.
 
 Dispatch is by the tensors' device only: a CUDA tensor launches the kernel
 (a failed build or launch raises), a CPU tensor runs the plain twin. The
-kernels are built from `csrc/fused_qp.cu` with nvcc for sm_90a on first use,
-into `build/robust_nonlinear_mpc_torch/` next to the package.
+kernels are built from `csrc/` on first use (`ops/cuda_lib.py`).
 """
 
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
-
 import torch
 
-from robust_nonlinear_mpc_torch.ops.qp_ipm import _forward_sweep
+from robust_nonlinear_mpc_torch.ops.cuda_lib import check as _check
+from robust_nonlinear_mpc_torch.ops.cuda_lib import launch
+from robust_nonlinear_mpc_torch.ops.cuda_lib import suffix as _suffix
+from robust_nonlinear_mpc_torch.ops.qp_ipm import (
+    QPData,
+    QPStatics,
+    _curvature,
+    _forward_sweep,
+    _fused_newton,
+    _mehrotra_iteration,
+)
 from robust_nonlinear_mpc_torch.utils.numerics import mv, sym
 
 MAX_NX = 32
 MAX_NU = 4
-
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "fused_qp.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "robust_nonlinear_mpc_torch"
 
 
 def _tri(nu):
@@ -141,65 +151,29 @@ def _plain_resolve(A, B, fact, rbx, rbxN, rbu, req):
     )
 
 
-# ----------------------------------------------------------------------
-# the CUDA library
-# ----------------------------------------------------------------------
-_LIB = None
-
-
-def build_extension(verbose: bool = False):
-    """Compile `csrc/fused_qp.cu` for sm_90a (once per process) and bind its
-    plain C interface with ctypes. Raises if the build fails."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = load(
-        name="rnm_fused_qp",
-        sources=[str(SOURCE)],
-        build_directory=str(BUILD_DIR),
-        extra_cuda_cflags=[
-            "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-            "-Xptxas=-v",
-        ],
-        is_python_module=False,
-        verbose=verbose,
+def _plain_ipm_iter(A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN,
+                    W, W_f, X, U, lam, s, lam_f, s_f, nu_dyn,
+                    req, rineq, rineq_f, rx_pad, rxN, ru, scale_p, done,
+                    *, tau, n_comp):
+    """One Mehrotra iteration, batch-leading: the JAX `_fallback_ipm_iter`
+    (the semantics of `_ipm_iter_kernel`) on the plain twins of the Newton
+    kernels, with the curvature of the given weights W, W_f."""
+    stat = QPStatics(Hx, Hu, HxN, Gx, Gu, Gf)
+    data = QPData(A, B, c, qx, qu, h, hf, xinit=None)
+    newton = _fused_newton(stat, data, _plain_factor_predictor, _plain_resolve)
+    state = (X, U, lam, s, lam_f, s_f, nu_dyn, (req, rineq, rineq_f, rx_pad[:, 1:], rxN, ru))
+    (*it_n, R_n), res, bad = _mehrotra_iteration(
+        stat, data, state, lambda _W, _W_f, *rhs: newton(W, W_f, *rhs),
+        tau=tau, n_comp=n_comp, scale_p=scale_p, frozen=done,
     )
-    lib = ctypes.CDLL(path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"rnm_factor_predictor_{suffix}")
-        fn.argtypes = [ptr] * 20 + [i32] * 4 + [ptr]
-        fn.restype = i32
-        fn = getattr(lib, f"rnm_resolve_{suffix}")
-        fn.argtypes = [ptr] * 16 + [i32] * 4 + [ptr]
-        fn.restype = i32
-    lib.rnm_error_string.argtypes = [i32]
-    lib.rnm_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    req_n, rineq_n, rineqf_n, rx_n, rxN_n, ru_n = R_n
+    rxpad_n = torch.cat([torch.zeros_like(rx_pad[:, :1]), rx_n], dim=1)
+    return (*it_n, req_n, rineq_n, rineqf_n, rxpad_n, rxN_n, ru_n, res, bad)
 
 
-def _suffix(dtype):
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise TypeError(f"fused Newton kernels take float32 or float64, got {dtype}")
-
-
-def _check(name, t, shape, like):
-    if t.device != like.device or t.dtype != like.dtype:
-        raise ValueError(
-            f"{name}: expected {like.dtype} on {like.device}, got {t.dtype} on {t.device}"
-        )
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    return t.contiguous()
-
-
+# ----------------------------------------------------------------------
+# the CUDA kernels
+# ----------------------------------------------------------------------
 def _dims(A, B):
     if A.dim() != 4 or B.dim() != 4:
         raise ValueError("A and B must be batch-leading (B, N, nx, nx) / (B, N, nx, nu)")
@@ -211,15 +185,6 @@ def _dims(A, B):
             f"got nx={nx}, nu={nu}"
         )
     return Bsz, N, nx, nu
-
-
-def _launch(fn_name, args, ints, device):
-    lib = build_extension()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*[a.data_ptr() for a in args], *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: {lib.rnm_error_string(err).decode()}")
 
 
 def factor_predictor(A, B, Cxx, Cuu, Cxu, PN, rbx, rbxN, rbu, req):
@@ -250,8 +215,8 @@ def factor_predictor(A, B, Cxx, Cuu, Cxu, PN, rbx, rbxN, rbu, req):
     Fuu_tri, Fiv_tri, Pseq = new(N, nuu), new(N, nuu), new(N, nx, nx)
     kff, pn = new(N, nu), new(N, nx)
     if Bsz > 0:
-        _launch(fn, ins + [dX, dU, dnu, K, FxuT, Fuu_tri, Fiv_tri, Pseq, kff, pn],
-                (Bsz, N, nx, nu), A.device)
+        launch(fn, ins + [dX, dU, dnu, K, FxuT, Fuu_tri, Fiv_tri, Pseq, kff, pn],
+               (Bsz, N, nx, nu), A.device)
         factor_predictor.launches += 1
     return dX, dU, dnu, (K, FxuT, Fuu_tri, Fiv_tri, Pseq)
 
@@ -287,7 +252,7 @@ def resolve(A, B, fact, rbx, rbxN, rbu, req):
     dX, dU, dnu = new(N + 1, nx), new(N, nu), new(N, nx)
     kff, pn = new(N, nu), new(N, nx)
     if Bsz > 0:
-        _launch(fn, ins + [dX, dU, dnu, kff, pn], (Bsz, N, nx, nu), A.device)
+        launch(fn, ins + [dX, dU, dnu, kff, pn], (Bsz, N, nx, nu), A.device)
         resolve.launches += 1
     return dX, dU, dnu
 
@@ -295,10 +260,73 @@ def resolve(A, B, fact, rbx, rbxN, rbu, req):
 resolve.launches = 0
 
 
+def ipm_iteration(A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN,
+                  W, W_f, X, U, lam, s, lam_f, s_f, nu_dyn,
+                  req, rineq, rineq_f, rx_pad, rxN, ru, scale_p, done,
+                  *, tau, n_comp):
+    """One whole Mehrotra iteration for the batch (contract of the JAX
+    `_ipm_iter_batched`). The statics Gx (N,ni,nx), Gu (N,ni,nu), Gf
+    (ni_f,nx), Hx (N,nx,nx), Hu (N,nu,nu), HxN (nx,nx) are shared; everything
+    else leads with the batch; rx_pad (B,N,nx) has a zero row 0 and `done`
+    (B,) bool marks lanes that keep their iterate. Returns (X, U, lam, s,
+    lam_f, s_f, nu_dyn, req, rineq, rineq_f, rx_pad, rxN, ru) at the new
+    iterate, the KKT scalar res (B,) and bad (B,) bool, set where a
+    non-finite step was reverted."""
+    args = (A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN, W, W_f, X, U, lam, s,
+            lam_f, s_f, nu_dyn, req, rineq, rineq_f, rx_pad, rxN, ru, scale_p, done)
+    if A.device.type == "cpu":
+        return _plain_ipm_iter(*args, tau=tau, n_comp=n_comp)
+    if A.device.type != "cuda":
+        raise ValueError(f"ipm_iteration: unsupported device {A.device}")
+    Bsz, N, nx, nu = _dims(A, B)
+    ni, ni_f = Gx.shape[1], Gf.shape[0]
+    Cxx, Cuu, Cxu, PN = _curvature(QPStatics(Hx, Hu, HxN, Gx, Gu, Gf), W, W_f)
+    shapes = {
+        "A": (Bsz, N, nx, nx), "B": (Bsz, N, nx, nu), "c": (Bsz, N, nx),
+        "qx": (Bsz, N + 1, nx), "qu": (Bsz, N, nu), "h": (Bsz, N, ni), "hf": (Bsz, ni_f),
+        "Gx": (N, ni, nx), "Gu": (N, ni, nu), "Gf": (ni_f, nx), "Hx": (N, nx, nx),
+        "Hu": (N, nu, nu), "HxN": (nx, nx), "Cxx": (Bsz, N, nx, nx),
+        "Cuu": (Bsz, N, nu, nu), "Cxu": (Bsz, N, nx, nu), "PN": (Bsz, nx, nx),
+        "X": (Bsz, N + 1, nx), "U": (Bsz, N, nu), "lam": (Bsz, N, ni), "s": (Bsz, N, ni),
+        "lam_f": (Bsz, ni_f), "s_f": (Bsz, ni_f), "nu_dyn": (Bsz, N, nx),
+        "req": (Bsz, N, nx), "rineq": (Bsz, N, ni), "rineq_f": (Bsz, ni_f),
+        "rx_pad": (Bsz, N, nx), "rxN": (Bsz, nx), "ru": (Bsz, N, nu), "scale_p": (Bsz,),
+    }
+    values = dict(zip(shapes, (A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN, Cxx, Cuu,
+                               Cxu, PN, X, U, lam, s, lam_f, s_f, nu_dyn, req, rineq,
+                               rineq_f, rx_pad, rxN, ru, scale_p)))
+    ins = [_check(k, values[k], shape, A) for k, shape in shapes.items()]
+    ins.append(_check("done", done, (Bsz,), A, dtype=torch.bool))
+    new = lambda *s_: torch.empty((Bsz,) + s_, dtype=A.dtype, device=A.device)
+    outs = [new(N + 1, nx), new(N, nu), new(N, ni), new(N, ni), new(ni_f), new(ni_f),
+            new(N, nx), new(N, nx), new(N, ni), new(ni_f), new(N, nx), new(nx), new(N, nu),
+            new(), torch.empty((Bsz,), dtype=torch.bool, device=A.device)]
+    # per-lane workspace, one allocation: rbx, rbxN, rbu, dX, dU, dnu, K,
+    # FxuT, Fuu_tri, Fiv_tri, Pseq, kff, pn, ds, dlam, ds_f, dlam_f, t, t_f,
+    # rcomp, rcomp_f
+    nuu = nu * (nu + 1) // 2
+    sizes = [N * nx, nx, N * nu, (N + 1) * nx, N * nu, N * nx, N * nu * nx, N * nu * nx,
+             N * nuu, N * nuu, N * nx * nx, N * nu, N * nx, N * ni, N * ni, ni_f, ni_f,
+             N * ni, ni_f, N * ni, ni_f]
+    work = torch.split(torch.empty(Bsz * sum(sizes), dtype=A.dtype, device=A.device),
+                       [Bsz * n for n in sizes])
+    if Bsz > 0:
+        launch(f"rnm_ipm_iter_{_suffix(A.dtype)}", ins + outs + list(work),
+               (Bsz, N, nx, nu, ni, ni_f, float(tau), float(n_comp)), A.device,
+               pointer_array=True)
+        ipm_iteration.launches += 1
+    return tuple(outs)
+
+
+ipm_iteration.launches = 0
+
+KERNELS = (factor_predictor, resolve, ipm_iteration)
+
+
 def reset_launch_counts():
-    factor_predictor.launches = 0
-    resolve.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def launch_counts():
-    return {"factor_predictor": factor_predictor.launches, "resolve": resolve.launches}
+    return {k.__name__: k.launches for k in KERNELS}

@@ -87,20 +87,26 @@ class IPMOptions(NamedTuple):
     tau: float = 0.995      # fraction-to-boundary
     init_slack: float = 1.0
     # Newton-step linear solver:
-    #   "riccati" - block-tridiagonal Riccati factorization, a torch loop over
-    #               the horizon (the plain path);
-    #   "fused"   - the same factorization as two hand-written CUDA kernels
-    #               (ops/fused_qp.py, csrc/fused_qp.cu): the port's name for
-    #               the JAX package's "pallas". On CPU tensors it runs the
-    #               kernels' plain torch twins.
-    # The JAX options "condensed" and "pallas_iter" are not ported.
+    #   "riccati"    - block-tridiagonal Riccati factorization, a torch loop
+    #                  over the horizon (the plain path);
+    #   "fused"      - the same factorization as two hand-written CUDA kernels
+    #                  (ops/fused_qp.py, csrc/fused_qp.cu): the port's name for
+    #                  the JAX package's "pallas";
+    #   "fused_iter" - the whole Mehrotra iteration as one hand-written CUDA
+    #                  kernel (ops/fused_qp.ipm_iteration, csrc/fused_ipm.cu):
+    #                  the port's name for "pallas_iter". W = lam / s, the
+    #                  curvature Gram products and the done bookkeeping stay
+    #                  outside the kernel.
+    # On CPU tensors the kernels' plain torch twins run. The JAX option
+    # "condensed" is not ported.
     kkt: str = "riccati"
 
 
+KKT_SOLVERS = ("riccati", "fused", "fused_iter")
 _NOT_PORTED_KKT = {
     "condensed": "ROADMAP.md Open items 1.12 (research options)",
-    "pallas_iter": "ROADMAP.md Open items 2 (kernel K6)",
     "pallas": "use kkt='fused', the port's name for the fused Newton kernels",
+    "pallas_iter": "use kkt='fused_iter', the port's name for the whole-iteration kernel",
 }
 
 
@@ -232,6 +238,128 @@ def _step_to_boundary(v, dv, tau):
     return torch.clamp(tau * lane_min(ratio), max=1.0)
 
 
+def _kkt_scalar(data: QPData, scale_p, n_comp, R, lam, lam_f, s, s_f):
+    """Per-lane relative KKT residual: primal and dual max-norms over their
+    scales, and the duality gap."""
+    req, rineq, rineq_f, rx, rxN, ru = R
+    gap = (lane_sum(lam * s) + lane_sum(lam_f * s_f)) / n_comp
+    scale_d = 1.0 + lane_max_abs(data.qx, data.qu, lam, lam_f)
+    res_p = lane_max_abs(req, rineq, rineq_f) / scale_p
+    res_d = lane_max_abs(rx, rxN, ru) / scale_d
+    return torch.maximum(torch.maximum(res_p, res_d), gap / scale_d)
+
+
+def _riccati_newton(stat: QPStatics, data: QPData):
+    """Newton solves by the torch Riccati loops (kkt="riccati"): the
+    factorization fused with the predictor solve, then `nsolve` for the
+    corrector against the cached factors."""
+    def newton(W, W_f, rbx, rbxN, rbu, req):
+        fact, (kff, pn) = _factorize_with_presolve(stat, data, W, W_f, rbx, rbxN, rbu, req)
+        dX, dU, _ = _forward_sweep(data.A, data.B, fact[0], kff, req, fact[3], pn)
+        return dX, dU, lambda *r: _solve_newton(stat, data, fact, *r, req)
+
+    return newton
+
+
+def _fused_newton(stat: QPStatics, data: QPData, factor_predictor, resolve):
+    """Newton solves by the fused pair (`ops/fused_qp.factor_predictor` /
+    `resolve`, or their plain twins) on the curvature of the weights."""
+    def newton(W, W_f, rbx, rbxN, rbu, req):
+        Cxx, Cuu, Cxu, PN = _curvature(stat, W, W_f)
+        dX, dU, _, fact = factor_predictor(data.A, data.B, Cxx, Cuu, Cxu, PN, rbx, rbxN, rbu, req)
+        return dX, dU, lambda *r: resolve(data.A, data.B, fact, *r, req)
+
+    return newton
+
+
+def _mehrotra_iteration(stat: QPStatics, data: QPData, state, newton, *, tau, n_comp,
+                        scale_p, frozen=None):
+    """One Mehrotra predictor-corrector iteration for every lane.
+
+    `state` = (X, U, lam, s, lam_f, s_f, nu_dyn, R) with R the residuals at
+    the iterate. `newton(W, W_f, rbx, rbxN, rbu, req)` factorizes and solves
+    the predictor system, returning (dX, dU, nsolve) with nsolve(rbx, rbxN,
+    rbu) -> (dX, dU, dnu) the corrector solve. Lanes in `frozen` keep their
+    iterate; a lane whose new KKT scalar is not finite keeps its iterate and
+    residuals and reports its old KKT scalar. Returns (state_n, res_n, bad).
+    """
+    X, U, lam, s, lam_f, s_f, nu_dyn, R = state
+    req, rineq, rineq_f, rx, rxN, ru = R
+    N = data.A.shape[1]
+    mu = (lane_sum(lam * s) + lane_sum(lam_f * s_f)) / n_comp
+
+    def reduced_rhs(rcomp, rcomp_f):
+        t = (lam * rineq - rcomp) / s
+        t_f = (lam_f * rineq_f - rcomp_f) / s_f
+        rbx = rx + torch.einsum("kri,bkr->bki", stat.Gx[1:N], t[:, 1:N])
+        rbx = torch.cat([torch.zeros_like(rbx[:, :1]), rbx], dim=1)
+        rbxN = rxN + t_f @ stat.Gf
+        rbu = ru + torch.einsum("kru,bkr->bku", stat.Gu, t)
+        return rbx, rbxN, rbu
+
+    def recover(dX, dU, rcomp, rcomp_f):
+        dGz = torch.einsum("kri,bki->bkr", stat.Gx, dX[:, :N]) + torch.einsum(
+            "kru,bku->bkr", stat.Gu, dU
+        )
+        ds = -rineq - dGz
+        dlam = -(rcomp + lam * ds) / s
+        ds_f = -rineq_f - dX[:, N] @ stat.Gf.T
+        dlam_f = -(rcomp_f + lam_f * ds_f) / s_f
+        return ds, dlam, ds_f, dlam_f
+
+    # ---- affine (predictor) step ----
+    rcomp_a = lam * s
+    rcomp_af = lam_f * s_f
+    dXa, dUa, nsolve = newton(lam / s, lam_f / s_f, *reduced_rhs(rcomp_a, rcomp_af), req)
+    dsa, dlama, dsfa, dlamfa = recover(dXa, dUa, rcomp_a, rcomp_af)
+
+    alpha_p_a = torch.minimum(
+        _step_to_boundary(s, dsa, 1.0), _step_to_boundary(s_f, dsfa, 1.0)
+    )
+    alpha_d_a = torch.minimum(
+        _step_to_boundary(lam, dlama, 1.0), _step_to_boundary(lam_f, dlamfa, 1.0)
+    )
+    ap3, ad3 = alpha_p_a[:, None, None], alpha_d_a[:, None, None]
+    mu_aff = (
+        lane_sum((s + ap3 * dsa) * (lam + ad3 * dlama))
+        + lane_sum((s_f + alpha_p_a[:, None] * dsfa) * (lam_f + alpha_d_a[:, None] * dlamfa))
+    ) / n_comp
+    sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3, 0.0, 1.0)
+
+    # ---- corrector step ----
+    sm = (sigma * mu)
+    rcomp_c = lam * s + dsa * dlama - sm[:, None, None]
+    rcomp_cf = lam_f * s_f + dsfa * dlamfa - sm[:, None]
+    dX, dU, dnu = nsolve(*reduced_rhs(rcomp_c, rcomp_cf))
+    ds, dlam, ds_f, dlam_f = recover(dX, dU, rcomp_c, rcomp_cf)
+
+    alpha_p = torch.minimum(
+        _step_to_boundary(s, ds, tau), _step_to_boundary(s_f, ds_f, tau)
+    )
+    alpha_d = torch.minimum(
+        _step_to_boundary(lam, dlam, tau), _step_to_boundary(lam_f, dlam_f, tau)
+    )
+    ap3, ad3 = alpha_p[:, None, None], alpha_d[:, None, None]
+    ap2, ad2 = alpha_p[:, None], alpha_d[:, None]
+    old = (X, U, lam, s, lam_f, s_f, nu_dyn)
+    new = (X + ap3 * dX, U + ap3 * dU, lam + ad3 * dlam, s + ap3 * ds,
+           lam_f + ad2 * dlam_f, s_f + ap2 * ds_f, nu_dyn + ad3 * dnu)
+    if frozen is not None:
+        new = tuple(lane_where(frozen, o, n) for n, o in zip(new, old))
+    X_n, U_n, lam_n, s_n, lamf_n, sf_n, nu_n = new
+
+    R_n = _residuals(stat, data, X_n, U_n, lam_n, s_n, lamf_n, sf_n, nu_n)
+    res_n = _kkt_scalar(data, scale_p, n_comp, R_n, lam_n, lamf_n, s_n, sf_n)
+
+    # non-finite step: revert to the previous iterate and stop the lane
+    bad = ~torch.isfinite(res_n)
+    keep = ~bad
+    new = tuple(lane_where(keep, n, o) for n, o in zip(new, old))
+    R_n = tree_where(keep, R_n, R)
+    res_n = torch.where(bad, _kkt_scalar(data, scale_p, n_comp, R, lam, lam_f, s, s_f), res_n)
+    return (*new, R_n), res_n, bad
+
+
 # ----------------------------------------------------------------------
 # Main solve
 # ----------------------------------------------------------------------
@@ -254,8 +382,8 @@ def solve_qp(
         raise NotImplementedError(
             f"IPMOptions.kkt={opts.kkt!r} is not ported: {_NOT_PORTED_KKT[opts.kkt]}"
         )
-    if opts.kkt not in ("riccati", "fused"):
-        raise ValueError(f"IPMOptions.kkt must be 'riccati' or 'fused', got {opts.kkt!r}")
+    if opts.kkt not in KKT_SOLVERS:
+        raise ValueError(f"IPMOptions.kkt must be one of {KKT_SOLVERS}, got {opts.kkt!r}")
     Bsz, N, nx = data.c.shape
     nu = data.B.shape[3]
     stat = stat.per_stage(N)
@@ -301,121 +429,34 @@ def solve_qp(
     scale_p = 1.0 + lane_max_abs(data.c, data.h, data.hf, data.xinit)
     eps_mach = torch.finfo(dtype).eps
 
-    def kkt_scalar(R, lam, lam_f, s, s_f):
-        req, rineq, rineq_f, rx, rxN, ru = R
-        gap = (lane_sum(lam * s) + lane_sum(lam_f * s_f)) / n_comp
-        scale_d = 1.0 + lane_max_abs(data.qx, data.qu, lam, lam_f)
-        res_p = lane_max_abs(req, rineq, rineq_f) / scale_p
-        res_d = lane_max_abs(rx, rxN, ru) / scale_d
-        return torch.maximum(torch.maximum(res_p, res_d), gap / scale_d)
+    if opts.kkt == "fused_iter":
+        from robust_nonlinear_mpc_torch.ops.fused_qp import ipm_iteration
 
-    if opts.kkt == "fused":
-        from robust_nonlinear_mpc_torch.ops.fused_qp import factor_predictor, resolve
+        zero_row = torch.zeros((Bsz, 1, nx), dtype=dtype, device=device)
 
-    def body(X, U, lam, s, lam_f, s_f, nu_dyn, R):
-        req, rineq, rineq_f, rx, rxN, ru = R
-        mu = (lane_sum(lam * s) + lane_sum(lam_f * s_f)) / n_comp
-        W = lam / s
-        W_f = lam_f / s_f
-
-        def reduced_rhs(rcomp, rcomp_f):
-            t = (lam * rineq - rcomp) / s
-            t_f = (lam_f * rineq_f - rcomp_f) / s_f
-            rbx = rx + torch.einsum("kri,bkr->bki", stat.Gx[1:N], t[:, 1:N])
-            rbx = torch.cat([torch.zeros_like(rbx[:, :1]), rbx], dim=1)
-            rbxN = rxN + t_f @ stat.Gf
-            rbu = ru + torch.einsum("kru,bkr->bku", stat.Gu, t)
-            return rbx, rbxN, rbu
-
-        def recover(dX, dU, rcomp, rcomp_f):
-            dGz = torch.einsum("kri,bki->bkr", stat.Gx, dX[:, :N]) + torch.einsum(
-                "kru,bku->bkr", stat.Gu, dU
+        def iterate(state, frozen):
+            X, U, lam, s, lam_f, s_f, nu_dyn, (req, rineq, rineq_f, rx, rxN, ru) = state
+            *it_n, req_n, rineq_n, rineqf_n, rxpad_n, rxN_n, ru_n, res_n, bad = ipm_iteration(
+                data.A, data.B, data.c, data.qx, data.qu, data.h, data.hf,
+                stat.Gx, stat.Gu, stat.Gf, stat.Hx, stat.Hu, stat.HxN,
+                lam / s, lam_f / s_f, X, U, lam, s, lam_f, s_f, nu_dyn,
+                req, rineq, rineq_f, torch.cat([zero_row, rx], dim=1), rxN, ru,
+                scale_p, frozen, tau=opts.tau, n_comp=n_comp,
             )
-            ds = -rineq - dGz
-            dlam = -(rcomp + lam * ds) / s
-            ds_f = -rineq_f - dX[:, N] @ stat.Gf.T
-            dlam_f = -(rcomp_f + lam_f * ds_f) / s_f
-            return ds, dlam, ds_f, dlam_f
-
-        # ---- affine (predictor) step ----
-        rcomp_a = lam * s
-        rcomp_af = lam_f * s_f
-        rbx, rbxN, rbu = reduced_rhs(rcomp_a, rcomp_af)
+            R_n = (req_n, rineq_n, rineqf_n, rxpad_n[:, 1:], rxN_n, ru_n)
+            return (*it_n, R_n), res_n, bad
+    else:
         if opts.kkt == "fused":
-            Cxx, Cuu, Cxu, PN = _curvature(stat, W, W_f)
-            dXa, dUa, _, fact_p = factor_predictor(
-                data.A, data.B, Cxx, Cuu, Cxu, PN, rbx, rbxN, rbu, req
-            )
-            nsolve = lambda rbx_, rbxN_, rbu_: resolve(
-                data.A, data.B, fact_p, rbx_, rbxN_, rbu_, req
-            )
+            from robust_nonlinear_mpc_torch.ops.fused_qp import factor_predictor, resolve
+
+            newton = _fused_newton(stat, data, factor_predictor, resolve)
         else:
-            fact, (kff_a, p_next_a) = _factorize_with_presolve(
-                stat, data, W, W_f, rbx, rbxN, rbu, req
-            )
-            dXa, dUa, _ = _forward_sweep(data.A, data.B, fact[0], kff_a, req, fact[3], p_next_a)
-            nsolve = lambda rbx_, rbxN_, rbu_: _solve_newton(
-                stat, data, fact, rbx_, rbxN_, rbu_, req
-            )
-        dsa, dlama, dsfa, dlamfa = recover(dXa, dUa, rcomp_a, rcomp_af)
+            newton = _riccati_newton(stat, data)
 
-        alpha_p_a = torch.minimum(
-            _step_to_boundary(s, dsa, 1.0), _step_to_boundary(s_f, dsfa, 1.0)
-        )
-        alpha_d_a = torch.minimum(
-            _step_to_boundary(lam, dlama, 1.0), _step_to_boundary(lam_f, dlamfa, 1.0)
-        )
-        ap3, ad3 = alpha_p_a[:, None, None], alpha_d_a[:, None, None]
-        mu_aff = (
-            lane_sum((s + ap3 * dsa) * (lam + ad3 * dlama))
-            + lane_sum((s_f + alpha_p_a[:, None] * dsfa) * (lam_f + alpha_d_a[:, None] * dlamfa))
-        ) / n_comp
-        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3, 0.0, 1.0)
-
-        # ---- corrector step ----
-        sm = (sigma * mu)
-        rcomp_c = lam * s + dsa * dlama - sm[:, None, None]
-        rcomp_cf = lam_f * s_f + dsfa * dlamfa - sm[:, None]
-        rbx, rbxN, rbu = reduced_rhs(rcomp_c, rcomp_cf)
-        dX, dU, dnu = nsolve(rbx, rbxN, rbu)
-        ds, dlam, ds_f, dlam_f = recover(dX, dU, rcomp_c, rcomp_cf)
-
-        alpha_p = torch.minimum(
-            _step_to_boundary(s, ds, opts.tau), _step_to_boundary(s_f, ds_f, opts.tau)
-        )
-        alpha_d = torch.minimum(
-            _step_to_boundary(lam, dlam, opts.tau),
-            _step_to_boundary(lam_f, dlam_f, opts.tau),
-        )
-        ap3, ad3 = alpha_p[:, None, None], alpha_d[:, None, None]
-        ap2, ad2 = alpha_p[:, None], alpha_d[:, None]
-        X_n = X + ap3 * dX
-        U_n = U + ap3 * dU
-        s_n = s + ap3 * ds
-        sf_n = s_f + ap2 * ds_f
-        lam_n = lam + ad3 * dlam
-        lamf_n = lam_f + ad2 * dlam_f
-        nu_n = nu_dyn + ad3 * dnu
-
-        R_n = _residuals(stat, data, X_n, U_n, lam_n, s_n, lamf_n, sf_n, nu_n)
-        res_n = kkt_scalar(R_n, lam_n, lamf_n, s_n, sf_n)
-
-        # non-finite step: revert to the previous iterate and stop the lane
-        bad = ~torch.isfinite(res_n)
-        keep = ~bad
-        X_n, U_n, s_n, sf_n, lam_n, lamf_n, nu_n = (
-            lane_where(keep, n, o)
-            for n, o in zip((X_n, U_n, s_n, sf_n, lam_n, lamf_n, nu_n),
-                            (X, U, s, s_f, lam, lam_f, nu_dyn))
-        )
-        R_n = tree_where(keep, R_n, R)
-        res_n = torch.where(bad, kkt_scalar(R, lam, lam_f, s, s_f), res_n)
-
-        mu_n = (lane_sum(lam_n * s_n) + lane_sum(lamf_n * sf_n)) / n_comp
-        scale_mu = 1.0 + lane_max_abs(data.qx, data.qu, lam_n, lamf_n)
-        at_floor = mu_n < 10.0 * eps_mach * scale_mu
-        done_n = (res_n < opts.tol) | bad | at_floor
-        return (X_n, U_n, lam_n, s_n, lamf_n, sf_n, nu_n, R_n), done_n
+        def iterate(state, frozen):
+            # inactive lanes are frozen by the loop's select
+            return _mehrotra_iteration(stat, data, state, newton, tau=opts.tau,
+                                       n_comp=n_comp, scale_p=scale_p)
 
     R = _residuals(stat, data, X0, U0, lam0, s0, lamf0, sf0, nu0)
     state = (X0, U0, lam0, s0, lamf0, sf0, nu0, R)
@@ -425,19 +466,22 @@ def solve_qp(
         active = (~done) & (it < cap)
         if not bool(active.any()):
             break
-        new_state, done_n = body(*state)
+        new_state, res_n, bad = iterate(state, ~active)
+        lam_n, s_n, lamf_n, sf_n = new_state[2:6]
+        mu_n = (lane_sum(lam_n * s_n) + lane_sum(lamf_n * sf_n)) / n_comp
+        scale_mu = 1.0 + lane_max_abs(data.qx, data.qu, lam_n, lamf_n)
+        at_floor = mu_n < 10.0 * eps_mach * scale_mu
+        done_n = (res_n < opts.tol) | bad | at_floor
         state = tree_where(active, new_state, state)
         done = torch.where(active, done_n, done)
         it = it + active.to(torch.int32)
 
     X, U, lam, s, lam_f, s_f, nu_dyn, R = state
-    return _finalize(stat, data, opts, N, n_comp, kkt_scalar,
-                     X, U, lam, s, lam_f, s_f, nu_dyn, R, it)
+    res = _kkt_scalar(data, scale_p, n_comp, R, lam, lam_f, s, s_f)
+    return _finalize(stat, data, opts, N, res, X, U, lam, s, lam_f, s_f, nu_dyn, it)
 
 
-def _finalize(stat, data, opts, N, n_comp, kkt_scalar,
-              X, U, lam, s, lam_f, s_f, nu_dyn, R, iters):
-    res = kkt_scalar(R, lam, lam_f, s, s_f)
+def _finalize(stat, data, opts, N, res, X, U, lam, s, lam_f, s_f, nu_dyn, iters):
     nu_init = -(
         X[:, 0] @ stat.Hx[0].T
         + data.qx[:, 0]

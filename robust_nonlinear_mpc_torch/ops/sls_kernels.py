@@ -1,6 +1,8 @@
 """fast-SLS tube synthesis: dual extraction, the column-wise backward
-Riccati and the Phi-free streaming response (port of the GEMM-folded forms in
-`robust_nonlinear_mpc_tpu/ops/sls_kernels.py`).
+Riccati, the Phi-free streaming response and the Phi-materializing stages
+(propagation, backoffs, tube cost). Port of the GEMM-folded forms and of
+`propagate` / `backoff_from_phi` / `tube_cost` in
+`robust_nonlinear_mpc_tpu/ops/sls_kernels.py`.
 
 Everything here is plain torch: the JAX package computes these stages with
 XLA outside any Pallas kernel. Every function is batch-leading: A (B, N, nx,
@@ -131,3 +133,59 @@ def response_streaming_folded(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon):
     cost_tube = torch.sqrt(cost_acc + (qf * qf).sum(dim=(1, 2)))
     return (torch.stack(beta, dim=1), beta_f, torch.stack(backoff, dim=1),
             backoff_f, cost_tube)
+
+
+def propagate(A, B, E, K):
+    """Forward-propagate the system-response maps through A + B K[k, j].
+
+    A (B, N, nx, nx), B (B, N, nx, nu), E (N+1, nx, nw) shared,
+    K (B, N, N+1, nu, nx). Returns Phi_x (B, N+1, N+1, nx, nw) and
+    Phi_u (B, N, N+1, nu, nw); columns j > k are zero."""
+    N = A.shape[1]
+    cols = torch.arange(N + 1, device=A.device)
+    col = lambda m: m[None, :, None, None]
+    row = A.new_zeros((A.shape[0], N + 1, A.shape[2], E.shape[2]))
+    rows_x, rows_u = [], []
+    for k in range(N):
+        # inject this step's diagonal: Phi_x[k, k] = E[k]
+        row = torch.where(col(cols == k), E[k], row)
+        K_k = K[:, k]
+        phi_u = torch.einsum("bjui,bjiw->bjuw", K_k, row)
+        Acl = A[:, k, None] + torch.einsum("biu,bjuv->bjiv", B[:, k], K_k)
+        nxt = torch.einsum("bjiv,bjvw->bjiw", Acl, row)
+        active = col(cols <= k)
+        rows_x.append(row)
+        rows_u.append(torch.where(active, phi_u, torch.zeros_like(phi_u)))
+        row = torch.where(active, nxt, torch.zeros_like(nxt))
+    rows_x.append(torch.where(col(cols == N), E[N], row))
+    return torch.stack(rows_x, dim=1), torch.stack(rows_u, dim=1)
+
+
+def backoff_from_phi(Phi_x, Phi_u, Gx, Gu, Gf, epsilon):
+    """Row-norm tube tightenings, batch-leading:
+    beta[k, j, i] = max(||(Gx Phi_x[k,j] + Gu Phi_u[k,j])_i||^2, eps) for j <= k,
+    beta_f[j, i] = max(||(Gf Phi_x[N,j])_i||^2, eps), backoff[k] = sum_j
+    sqrt(beta[k, j]), backoff_f = sum_j sqrt(beta_f[j])."""
+    N = Phi_u.shape[1]
+    Z = torch.einsum("ri,bkjiw->bkjrw", Gx, Phi_x[:, :N]) + torch.einsum(
+        "ru,bkjuw->bkjrw", Gu, Phi_u
+    )
+    beta = (Z * Z).sum(dim=-1)[:, :, :N]
+    tri = torch.ones((N, N), dtype=torch.bool, device=Phi_x.device).tril()[None, :, :, None]
+    beta = torch.where(tri, torch.clamp(beta, min=epsilon), torch.zeros_like(beta))
+    Zf = torch.einsum("ri,bjiw->bjrw", Gf, Phi_x[:, N])
+    beta_f = torch.clamp((Zf * Zf).sum(dim=-1), min=epsilon)
+    backoff = torch.sqrt(beta).sum(dim=2)
+    backoff_f = torch.sqrt(beta_f).sum(dim=1)
+    return beta, beta_f, backoff, backoff_f
+
+
+def tube_cost(Phi_x, Phi_u, regs: SLSRegs):
+    """|| blkdiag(kron(I_N, Q_reg), Q_reg_f, kron(I_N, R_reg)) [Phi_x; Phi_u] ||_F
+    per lane."""
+    N = Phi_u.shape[1]
+    qx = torch.einsum("ab,zkjbw->zkjaw", regs.Q_reg, Phi_x[:, :N])
+    qf = torch.einsum("ab,zjbw->zjaw", regs.Q_reg_f, Phi_x[:, N])
+    ru = torch.einsum("ab,zkjbw->zkjaw", regs.R_reg, Phi_u)
+    sq = lambda t: (t * t).reshape(t.shape[0], -1).sum(dim=1)
+    return torch.sqrt(sq(qx) + sq(qf) + sq(ru))

@@ -2,13 +2,16 @@
 `recycle_eta` branch of `robust_nonlinear_mpc_tpu/solvers/fast_sls.py`).
 
 One tightened QP per solve: the backward Riccati uses the eta weights kept
-from the previous solve's QP duals, the streaming response computes the
-backoffs of the current linearization and gains, and the QP is warm-started
-from the previous solve's QP solution. All state is batch-leading.
+from the previous solve's QP duals, the response computes the backoffs of
+the current linearization and gains, and the QP is warm-started from the
+previous solve's QP solution. All state is batch-leading. The response is
+one of three (`compute_response`): the Phi-free streaming form, the
+Phi-materializing stages, or the fused CUDA kernel (`use_pallas_response`,
+`ops/fused_response.py`).
 
 Not ported (they raise NotImplementedError): the two-QP RTI and
-until-convergence branches, the Phi-materializing response, the Pallas
-response, the column-blocked and lane-packed SLS kernels and column sharding.
+until-convergence branches, the column-blocked and lane-packed SLS kernels
+and column sharding.
 """
 
 from __future__ import annotations
@@ -27,9 +30,12 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
 )
 from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     SLSRegs,
+    backoff_from_phi,
     backward_solve_folded,
     evaluate_dual_eta,
+    propagate,
     response_streaming_folded,
+    tube_cost,
 )
 from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where
 
@@ -159,11 +165,6 @@ def _check_options(opts: FastSLSOptions):
         (not opts.recycle_eta,
          "the two-QP RTI and until-convergence fast-SLS branches "
          "(recycle_eta=False) are not ported: ROADMAP.md Open items 1.5"),
-        (not opts.streaming_response,
-         "the Phi-materializing response (streaming_response=False) is not "
-         "ported: ROADMAP.md Open items 1.4"),
-        (opts.use_pallas_response,
-         "use_pallas_response needs kernel K4: ROADMAP.md Open items 2"),
         (opts.sls_block != 0,
          "the column-blocked / lane-packed SLS kernels (sls_block != 0) are "
          "not ported: ROADMAP.md Open items 1.4"),
@@ -173,6 +174,28 @@ def _check_options(opts: FastSLSOptions):
     for bad, msg in missing:
         if bad:
             raise NotImplementedError(msg)
+
+
+def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x, phi_like_u):
+    """Propagation + backoffs + tube cost by the configured path: the fused
+    CUDA kernel (float32, cast back), the streaming form (zero Phi buffers
+    shaped like `phi_like_*`) or the Phi-materializing stages. Returns
+    (Phi_x, Phi_u, beta, beta_f, backoff, backoff_f, cost_tube)."""
+    stat, eps = prob.stat, opts.epsilon_backoff
+    if opts.use_pallas_response:
+        from robust_nonlinear_mpc_torch.ops.fused_response import fused_response
+
+        out = fused_response(A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, *prob.regs, eps=eps)
+        return tuple(t.to(A.dtype) for t in out)
+    if opts.streaming_response:
+        nbeta, nbeta_f, nboff, nboff_f, ct = response_streaming_folded(
+            A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, prob.regs, eps
+        )
+        return (torch.zeros_like(phi_like_x), torch.zeros_like(phi_like_u),
+                nbeta, nbeta_f, nboff, nboff_f, ct)
+    Phi_x, Phi_u = propagate(A, B, prob.E, K)
+    ct = tube_cost(Phi_x, Phi_u, prob.regs)
+    return (Phi_x, Phi_u, *backoff_from_phi(Phi_x, Phi_u, stat.Gx, stat.Gu, stat.Gf, eps), ct)
 
 
 def fast_sls_solve(
@@ -221,11 +244,9 @@ def fast_sls_solve(
     K_r = backward_solve_folded(
         A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs
     )[1]
-    nbeta, nbeta_f, nboff, nboff_f, ct = response_streaming_folded(
-        A, B, prob.E, K_r, prob.stat.Gx, prob.stat.Gu, prob.stat.Gf, prob.regs, eps
+    Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
+        prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
     )
-    Phi_x = torch.zeros_like(persist.Phi_x)
-    Phi_u = torch.zeros_like(persist.Phi_u)
 
     data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - nboff,
                   hf=gf_res - nboff_f, xinit=xinit_dev)

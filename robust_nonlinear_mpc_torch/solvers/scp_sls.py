@@ -42,6 +42,9 @@ class SCPSLSOptions(NamedTuple):
     sls_max_iter: int = 30
     ipm: IPMOptions = IPMOptions()
     streaming_response: bool = False
+    # the fused response kernel (ops/fused_response.py); the JAX package
+    # reaches its Pallas twin only through FastSLSOptions
+    use_pallas_response: bool = False
     recycle_eta: bool = False
     recycle_warm_qp: bool = False
     ipm_first: IPMOptions | None = None
@@ -134,6 +137,7 @@ class SCPSLSSolver(nn.Module):
             conv_tol=self.opts.sls_conv_tol,
             epsilon_backoff=self.opts.epsilon_backoff,
             streaming_response=self.opts.streaming_response,
+            use_pallas_response=self.opts.use_pallas_response,
             recycle_eta=self.opts.recycle_eta,
             recycle_warm_qp=self.opts.recycle_warm_qp,
             ipm=self.opts.ipm,

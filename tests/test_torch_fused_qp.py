@@ -79,7 +79,7 @@ def test_fused_newton_matches_pallas_interpret(Bsz, nu):
         _close(g, r, f"resolve {name}")
 
     # CPU tensors take the plain path: no kernel launch is counted
-    assert fused_qp.launch_counts() == {"factor_predictor": 0, "resolve": 0}
+    assert fused_qp.launch_counts() == {"factor_predictor": 0, "resolve": 0, "ipm_iteration": 0}
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4])

@@ -32,7 +32,7 @@ def _states(n, seed):
 
 
 def test_constants_and_constraints_match():
-    jr, tr = JRocket(), TRocket()
+    jr, tr = JRocket(), TRocket(device="cpu")
     assert T_HOVER == J_HOVER
     for name in ("G", "g", "Gf", "gf", "E"):
         assert np.array_equal(getattr(tr, name).numpy(), np.asarray(getattr(jr, name))), name
@@ -43,13 +43,13 @@ def test_constants_and_constraints_match():
 
 
 def test_buffers_follow_to():
-    tr = TRocket().to(torch.float32)
+    tr = TRocket(device="cpu").to(torch.float32)
     assert tr.G.dtype == torch.float32 and tr.E.dtype == torch.float32
 
 
 def test_ode_matches_jax():
     X, U = _states(16, 1)
-    jr, tr = JRocket(), TRocket()
+    jr, tr = JRocket(), TRocket(device="cpu")
     ref = np.asarray(jax.vmap(jr.ode)(jnp.asarray(X), jnp.asarray(U)))
     got = tr.ode(torch.as_tensor(X), torch.as_tensor(U)).numpy()
     assert np.abs(got - ref).max() <= TOL
@@ -58,7 +58,7 @@ def test_ode_matches_jax():
 @pytest.mark.parametrize("method", ["rk4", "euler"])
 def test_ddyn_matches_jax(method):
     X, U = _states(16, 2)
-    jr, tr = JRocket(), TRocket()
+    jr, tr = JRocket(), TRocket(device="cpu")
     jr.discretization_method = tr.discretization_method = method
     ref = np.asarray(jax.vmap(jr.ddyn)(jnp.asarray(X), jnp.asarray(U)))
     got = tr.ddyn(torch.as_tensor(X), torch.as_tensor(U)).numpy()
@@ -67,7 +67,7 @@ def test_ddyn_matches_jax(method):
 
 def test_linearize_traj_matches_jax():
     N, Bsz = 5, 3
-    jr, tr = JRocket(), TRocket()
+    jr, tr = JRocket(), TRocket(device="cpu")
     Xs, Us = [], []
     for b in range(Bsz):
         X, U = _states(N + 1, 10 + b)

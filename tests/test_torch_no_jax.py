@@ -9,6 +9,7 @@ import pytest
 
 PORT = Path(__file__).resolve().parent.parent / "robust_nonlinear_mpc_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+CUDA_SOURCES = sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|from\s+jaxlib\b"
                         r"|from\s+robust_nonlinear_mpc_tpu\b|import\s+robust_nonlinear_mpc_tpu\b)",
                         re.MULTILINE)
@@ -16,7 +17,14 @@ JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|fro
 
 def test_port_has_sources():
     assert len(SOURCES) >= 15
-    assert (PORT / "csrc" / "fused_qp.cu").is_file()
+    for name in ("fused_qp.cu", "fused_ipm.cu", "fused_response.cu", "newton.cuh"):
+        assert (PORT / "csrc" / name).is_file(), name
+
+
+def test_kernel_sources_are_the_ones_built():
+    from robust_nonlinear_mpc_torch.ops import cuda_lib
+
+    assert [p for p in CUDA_SOURCES if p.suffix == ".cu"] == sorted(cuda_lib.SOURCES)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PORT.parent)))

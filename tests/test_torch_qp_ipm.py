@@ -1,8 +1,8 @@
 """PyTorch port: the batched interior-point QP (ops/qp_ipm.py) against the
 JAX `vmap(solve_qp)` (float64, CPU).
 
-Both Newton-solve paths of the port, "riccati" (the torch Riccati loop) and
-"fused" (the CUDA kernels' plain twins on CPU tensors), must reproduce the
+The port's Newton-solve paths, "riccati" (the torch Riccati loop), "fused"
+and "fused_iter" (the CUDA kernels' plain twins on CPU tensors), must reproduce the
 JAX iteration count of every lane exactly, and X / U / lam to 1e-8 (the
 IPM stops at tol = 1e-9 relative, so solutions agree far below that). The
 masked batch loop must give each lane what it gets when solved alone, also
@@ -64,7 +64,7 @@ def _assert_same(got, ref):
         assert np.abs(getattr(got, f).numpy() - np.asarray(getattr(ref, f))).max() <= TOL, f
 
 
-@pytest.mark.parametrize("kkt", ["riccati", "fused"])
+@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
 def test_solve_qp_matches_jax(kkt):
     stat, data = _problem(0)
     ref = _jax_solve(stat, data, jq.IPMOptions())
@@ -87,7 +87,7 @@ def test_batched_equals_per_lane():
         assert torch.allclose(one.lam[0], full.lam[b], rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("kkt", ["riccati", "fused"])
+@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
 def test_warm_start_and_lane_caps_match_jax(kkt):
     """Warm-start initial point (with the Mehrotra shift) and a per-lane
     iteration cap, on a perturbed copy of a solved problem."""

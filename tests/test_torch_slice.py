@@ -53,7 +53,7 @@ def _problem(N):
     d = dict(N=N, Q=solver.Q, R=solver.R, Qf=solver.Qf, Q_reg=solver.Q_reg,
              R_reg=solver.R_reg, Q_reg_f=solver.Q_reg_f, E=m.E, dt=m.dt,
              options=interop.options_to_plain(solver.opts))
-    return m, solver, interop.solver_from_numpy(d)
+    return m, solver, interop.solver_from_numpy(d, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_closed_loop_steps_match_jax(slice_setup):
     tcarry = interop.carry_from_numpy({
         "X": np.asarray(nom.X), "U": np.asarray(nom.U),
         "persist": interop.tree_to_numpy(persists), "x": x0s,
-    })
+    }, device="cpu")
     step = jax.jit(jax.vmap(make_mpc_step(solver)))
     tstep = t_make_mpc_step(tsolver)
     names = {1: "u0", 2: "X", 3: "U", 4: "backoff_x", 5: "backoff_u"}
@@ -160,10 +160,51 @@ def test_make_rocket_problem_matches_jax():
     )
 
     m, solver = make_rocket_problem(N=5)
-    tm, ts = t_make(N=5)
+    tm, ts = t_make(N=5, device="cpu")
     assert TX0 == X0 and ts.N == solver.N and tm.dt == m.dt
     assert (ts.opts.rti, ts.opts.fast_sls_rti_steps) == (solver.opts.rti, solver.opts.fast_sls_rti_steps)
     assert np.array_equal(tm.E.numpy(), np.asarray(m.E))
     for name in ("Q", "R", "Qf", "Q_reg", "R_reg", "Q_reg_f"):
         assert np.array_equal(getattr(ts, name).numpy(), np.asarray(getattr(solver, name))), name
     assert np.array_equal(ts.E.numpy(), np.asarray(solver.prob.E))
+
+
+def test_bench_fused_kernel_configuration_on_cpu():
+    """The fused-kernel configuration of the bench twin (whole-iteration
+    kernel, fused response) at a tiny size on the CPU (plain twins), seeded
+    from the default configuration's workload: the same lanes, real Phi
+    buffers carried, and one step keeps the state finite."""
+    from robust_nonlinear_mpc_torch import bench
+
+    size = dict(device="cpu", dtype=torch.float64, B=2, N=4, n_warm=1, n_rep=1)
+    base = bench.build_workload(**size)
+    wl = bench.build_workload(**size, kkt="fused_iter", response="fused", seed_from=base)
+    assert all(torch.equal(a, b) for a, b in zip(wl.carry[:2], base.carry[:2]))
+    assert torch.equal(wl.w_seq, base.w_seq)
+    fopts = wl.solver._fast_sls_opts()
+    assert wl.solver.opts.ipm.kkt == "fused_iter" and wl.response == "fused"
+    assert fopts.use_pallas_response and not fopts.streaming_response
+    assert wl.carry[2].Phi_x.shape == (2, 5, 5, wl.m.nx, wl.m.nw)
+    carry, out = wl.mpc_step(wl.carry, wl.w_seq[0])
+    assert out[6].all() and torch.isfinite(carry[0]).all() and torch.isfinite(carry[3]).all()
+    assert carry[2].Phi_x.shape == (2, 5, 5, wl.m.nx, wl.m.nw)
+    with pytest.raises(ValueError, match="response must be one of"):
+        bench.build_workload(device="cpu", B=2, N=4, response="blocked")
+    with pytest.raises(ValueError, match="other initial states"):
+        bench.build_workload(**{**size, "B": 3}, seed_from=base)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card the entry points raise instead of falling back to the
+    CPU; device="cpu" runs there."""
+    from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
+        make_rocket_problem as t_make,
+    )
+    from robust_nonlinear_mpc_torch.models.rocket import Rocket
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (Rocket, t_make, lambda: interop.solver_from_numpy({}),
+                  lambda: interop.carry_from_numpy({})):
+        with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+            build()
+    assert Rocket(device="cpu").G.device.type == "cpu"

@@ -18,7 +18,7 @@ TOL = 1e-10
 
 
 def _setup(seed):
-    m = Rocket()
+    m = Rocket(device="cpu")
     nx, nu, ni, ni_f = m.nx, m.nu, m.ni, m.ni_f
     rng = np.random.default_rng(seed)
     A = np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))
