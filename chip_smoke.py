@@ -5,30 +5,40 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each prints a line; any failed check raises and exits non-zero
 before the result lines):
   1. the device and its nvidia-smi name and power limit;
-  2. build every kernel (csrc/fused_qp.cu, fused_ipm.cu, fused_response.cu)
-     with nvcc for sm_90a;
+  2. build every kernel (csrc/fused_qp.cu, fused_ipm.cu, fused_response.cu,
+     fused_backward.cu) with nvcc for sm_90a;
   3. each kernel against its plain torch version on the card, relative to
      each output's max |value|: the Newton kernels K1/K2 float64 to 1e-10
      and float32 to 1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with
      nx = 17, nu = 4, and nu in {1, 2} at B = 8; the whole-iteration kernel
      K6 at the same (B, N) with ni = 42, ni_f = 34 (a lane marked done and a
      lane whose step is not finite included); the response kernel K4 at
-     B in {512, 37}, float32 to 1e-4; per-call times of every kernel and its
-     plain version at (512, 15) float32, beside the least time the card
-     could take (bytes over 3.35 TB/s, operations over the CUDA-core peak);
+     B in {512, 37}, float32 to 1e-4; the SLS backward kernel K3 at the
+     Newton kernels' cases with ni = 42, ni_f = 34; per-call times of every
+     kernel and its plain version at (512, 15) float32, beside the least
+     time the card could take (bytes over 3.35 TB/s, operations over the
+     CUDA-core peak); the K3 tool (tools/fused_bwd_bench.py) against the
+     column-blocked torch backward;
   4. solve_qp on rocket QPs at B = 512: kkt="fused" against kkt="riccati"
      in float32 (identical iteration counts, X/U within 1e-4); kkt=
      "fused_iter" against "riccati" in float64 (identical iteration counts
      on every lane) and float32 (success identical, X/U within 1e-4);
   5. 3 closed-loop MPC steps at N = 6, B = 8, float64 on the card (kernels)
      against the CPU (plain versions): identical success and QP iterations,
-     X/U within 1e-8;
+     X/U within 1e-8; then 3 steps of the reference's own two-QP RTI
+     configuration (make_rocket_problem's options) at N = 15, B = 16,
+     float64: the card with sls_block = -1 (K3) against the CPU with
+     sls_block = 0 (the folded torch backward), checked the same way;
   6. the bench twin (robust_nonlinear_mpc_torch.bench) at its full
-     configuration: the main path (K1, K2);
+     configuration (the column-blocked SLS kernels, sls_block = 2): the main
+     path (K1, K2);
   7. the bench twin in the fused-kernel configuration (kkt="fused_iter",
      response="fused"): the second path (K6, K4). Both configurations start
      from one SQP seed and run twice, default, fused, fused, default, each
-     with its stage breakdown and device busy share after its first run.
+     with its stage breakdown and device busy share after its first run;
+  8. the bench twin with sls_block = -1 from the same seed, once, with its
+     stage breakdown and busy share: the third path (K3), which must launch
+     in the timed steps.
 Every launch counter is zeroed just before each bench run and read just
 after it. The last lines are the kernels record, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -49,7 +59,7 @@ from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
     X0,
     make_rocket_problem,
 )
-from robust_nonlinear_mpc_torch.ops import cuda_lib, fused_qp, fused_response
+from robust_nonlinear_mpc_torch.ops import cuda_lib, fused_backward, fused_qp, fused_response
 from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     IPMOptions,
     QPData,
@@ -61,6 +71,7 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
 from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
+from robust_nonlinear_mpc_torch.tools import fused_bwd_bench
 from robust_nonlinear_mpc_torch.utils.batch import tree_map
 
 OUT_DIR = Path("chiprun_out")
@@ -70,12 +81,14 @@ REPLACES = {
     "resolve": f"{TPU_SOURCE}:293",
     "ipm_iteration": f"{TPU_SOURCE}:1234",
     "fused_response": "robust_nonlinear_mpc_tpu/ops/pallas_response.py:40",
+    "backward_K": "robust_nonlinear_mpc_tpu/ops/pallas_sls.py:138",
 }
 SOURCES = {
     "factor_predictor": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
     "resolve": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
     "ipm_iteration": "robust_nonlinear_mpc_torch/csrc/fused_ipm.cu",
     "fused_response": "robust_nonlinear_mpc_torch/csrc/fused_response.cu",
+    "backward_K": "robust_nonlinear_mpc_torch/csrc/fused_backward.cu",
 }
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, CUDA-core FLOP/s
@@ -85,8 +98,12 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 NX, NU, NI, NI_F = 17, 4, 42, 34
 
 
+_START = time.perf_counter()
+
+
 def say(msg):
-    print(msg, flush=True)
+    """Print a progress line with the seconds since the script started."""
+    print(f"{msg}  [{time.perf_counter() - _START:.1f} s]", flush=True)
 
 
 def fail(msg):
@@ -149,6 +166,7 @@ KERNEL_SYMBOLS = {
     "resolve": "resolve_kernel",
     "ipm_iteration": "ipm_iter_kernel",
     "fused_response": "response_kernel",
+    "backward_K": "backward_K_kernel",
 }
 
 
@@ -171,18 +189,6 @@ def kernel_ms(fn, kernel, n):
     if count != n:
         fail(f"the profiler saw {count} launches of {kernel}, expected {n}")
     return sum(ev.self_device_time_total for ev in rows) / 1e3 / n
-
-
-def cuda_ms(fn, n):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
@@ -277,6 +283,18 @@ def compare_response(Bsz, N=15):
             for name, a, b in zip(RESPONSE_OUTPUTS, got, ref)}
 
 
+def compare_backward(Bsz, N, nu, dtype):
+    """K3 against its plain version on the same card inputs (the tool's
+    inputs at the rocket's widths)."""
+    args = fused_bwd_bench.inputs(Bsz, N, NX, nu, NI, NI_F, "cuda", dtype, seed=Bsz + N + nu)
+    got = fused_backward.backward_K(*args)
+    ref = fused_backward._plain_backward_K(*args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"backward_K B={Bsz} N={N} nu={nu} {dtype}: not finite")
+    return {("backward_K", "K"): rel_err(got, ref)}
+
+
 def check_kernels():
     """Phase 3: every kernel against its plain version on the card. Returns
     each kernel's largest absolute error at the main path's shape."""
@@ -285,6 +303,8 @@ def check_kernels():
     cases += [(dtype, (B, N), lambda B=B, N=N, dtype=dtype: compare_ipm(B, N, dtype))
               for dtype in (torch.float64, torch.float32) for B, N in ((512, 15), (37, 15), (8, 60))]
     cases += [(torch.float32, (B, 15), lambda B=B: compare_response(B)) for B in (512, 37)]
+    cases += [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_backward(B, N, nu, dtype))
+              for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
     worst, main_err = {}, {}
     for dtype, (Bsz, N), run in cases:
         for (kname, oname), (r, ab) in run().items():
@@ -319,6 +339,14 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
         words, flops = Bsz * (newton_in + curv + newton_out + factors), Bsz * N * (fact + fwd)
     elif name == "resolve":
         words, flops = Bsz * (newton_in + factors + newton_out), Bsz * N * (ff + fwd)
+    elif name == "backward_K":
+        # what this run needs: the eta rows of the active (k, j) pairs
+        # (j <= k), all of A, B and eta_f, K written whole (zeros for j > k)
+        pairs = N * (N + 1) // 2
+        words = Bsz * (N * (nxx + nxu) + pairs * ni + (N + 1) * ni_f + N * (N + 1) * nxu) \
+            + ni * (nx + nu) + ni_f * nx + 2 * nxx + nu * nu
+        per_pair = 2 * ni * (nxx + nu * nu) + 4 * nx * nxx + 6 * nxx * nu + 4 * nu * nu * nx
+        flops = Bsz * (pairs * per_pair + (N + 1) * 2 * ni_f * nxx)
     elif name == "ipm_iteration":
         Nni = N * ni
         iterate = (N + 1) * nx + N * nu + 2 * Nni + 2 * ni_f + N * nx
@@ -356,6 +384,7 @@ def time_kernels():
     fact = fused_qp.factor_predictor(*mats, *rhs)[3]
     args, kw = ipm_inputs(512, 15, torch.float32, "cuda", seed=2)
     rargs = response_inputs(512, 15, "cuda", seed=2)
+    bargs = fused_bwd_bench.inputs(512, 15, NX, NU, NI, NI_F, "cuda", torch.float32, seed=2)
     pairs = {
         "factor_predictor": (lambda: fused_qp.factor_predictor(*mats, *rhs),
                              lambda: fused_qp._plain_factor_predictor(*mats, *rhs)),
@@ -365,13 +394,15 @@ def time_kernels():
                           lambda: fused_qp._plain_ipm_iter(*args, **kw)),
         "fused_response": (lambda: fused_response.fused_response(*rargs),
                            lambda: fused_response._plain_fused_response(*rargs)),
+        "backward_K": (lambda: fused_backward.backward_K(*bargs),
+                       lambda: fused_backward._plain_backward_K(*bargs)),
     }
     t = {}
     for k, (kern, plain) in pairs.items():
-        p1 = cuda_ms(plain, 5)
+        p1 = bench.cuda_ms(plain, 5)
         k1, k2 = kernel_ms(kern, k, 30), kernel_ms(kern, k, 30)
-        w = cuda_ms(kern, 30)
-        p2 = cuda_ms(plain, 5)
+        w = bench.cuda_ms(kern, 30)
+        p2 = bench.cuda_ms(plain, 5)
         t[k] = (min(k1, k2), min(p1, p2))
         say(f"[3] {k} at B=512 N=15 f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
             f"plain {t[k][1]:.4f} ms, bound " + "{:.4f} ms ({})".format(*kernel_bound(k)))
@@ -433,32 +464,39 @@ def check_fused_iter():
             fail("fused_iter and riccati solutions differ by more than 1e-4")
 
 
-def check_closed_loop():
-    """Phase 5: 3 MPC steps, kernels on the card against plain on the CPU."""
-    N, Bsz, dtype = 6, 8, torch.float64
+def card_vs_cpu(label, N, Bsz, configure, store_phi, seed, nominal=None):
+    """3 MPC steps from one nominal, the card against the CPU, each with its
+    solver options from `configure(opts, device)`: identical success and QP
+    iterations, X/U within 1e-8 (float64). The nominal is an SQP solve on
+    the card at tolerance 1e-6, or `nominal` = (X, U, x0) of the first Bsz
+    lanes of a bench seed."""
+    dtype = torch.float64
     runs = {}
     for device in ("cuda", "cpu"):
         m, solver = make_rocket_problem(N=N, device=device, dtype=dtype)
-        solver.opts = solver.opts._replace(
-            verbose=False, ipm=IPMOptions(max_iter=15, tol=3e-5, kkt="fused"),
-            adaptive_ipm_budget=(6, 15), streaming_response=True,
-            recycle_eta=True, recycle_warm_qp=True,
-        )
+        solver.opts = configure(solver.opts, device)
         runs[device] = (m, solver)
-    rng = np.random.default_rng(0)
-    x0s = np.array(X0)[None] + 0.02 * rng.standard_normal((Bsz, 17))
-    w = rng.uniform(-1.0, 1.0, (3, Bsz, 17))
-    m, solver = runs["cuda"]
-    nom = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, torch.as_tensor(x0s, dtype=dtype, device="cuda"),
-                    opts=solver.opts.sqp)
-    if not bool(nom.success.all()):
-        fail("SQP seed failed on the card")
+    rng = np.random.default_rng(seed)
+    if nominal is None:
+        x0s = torch.as_tensor(np.array(X0)[None] + 0.02 * rng.standard_normal((Bsz, NX)),
+                              dtype=dtype, device="cuda")
+        m, solver = runs["cuda"]
+        # tolerance 1e-6: past it the float64 SQP only chases rounding noise
+        # (ROADMAP.md section 3)
+        sqp_opts = solver.opts.sqp._replace(tol_step=1e-6, tol_feas=1e-6)
+        nom = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s, opts=sqp_opts)
+        if not bool(nom.success.all()):
+            fail(f"[{label}] SQP seed failed on the card")
+        X, U = nom.X, nom.U
+    else:
+        X, U, x0s = (t[:Bsz].to(dtype) for t in nominal)
+    w = rng.uniform(-1.0, 1.0, (3, Bsz, NX))
     outs = {}
     for device, (m, solver) in runs.items():
         to = lambda a: torch.as_tensor(a, dtype=dtype).to(device)
-        persist = FastSLSPersist.init(N, 17, 4, m.ni, m.ni_f, 17, batch=Bsz, dtype=dtype,
-                                      device=device, store_phi=False)
-        carry = (nom.X.to(device), nom.U.to(device), persist, to(x0s))
+        persist = FastSLSPersist.init(N, NX, NU, m.ni, m.ni_f, NX, batch=Bsz, dtype=dtype,
+                                      device=device, store_phi=store_phi)
+        carry = (X.to(device), U.to(device), persist, x0s.to(device))
         step = make_mpc_step(solver)
         outs[device] = []
         for i in range(3):
@@ -468,10 +506,29 @@ def check_closed_loop():
         ok_same = bool((g[6] == c[6]).all()) and bool((g[7] == c[7]).all())
         ex = float((g[2] - c[2]).abs().max())
         eu = float((g[3] - c[3]).abs().max())
-        say(f"[5] step {i}: success {g[6].tolist()} qp iters {g[7].tolist()} "
+        say(f"[{label}] step {i}: success {g[6].tolist()} qp iters {g[7].tolist()} "
             f"|dX| {ex:.2e} |dU| {eu:.2e}")
         if not ok_same or ex > 1e-8 or eu > 1e-8:
-            fail(f"closed-loop step {i} differs between the card and the CPU")
+            fail(f"[{label}] closed-loop step {i} differs between the card and the CPU")
+
+
+def check_closed_loop(seed_wl):
+    """Phase 5: the bench's recycled-eta step (K1/K2 on the card) at N = 6,
+    B = 8, then the reference's two-QP RTI step (K3 on the card) at N = 15,
+    B = 16 from the first 16 lanes of the bench's SQP seed (`seed_wl`, N =
+    15), each against the CPU's plain versions."""
+    card_vs_cpu("5", 6, 8, lambda opts, device: opts._replace(
+        verbose=False, ipm=IPMOptions(max_iter=15, tol=3e-5, kkt="fused"),
+        adaptive_ipm_budget=(6, 15), streaming_response=True,
+        recycle_eta=True, recycle_warm_qp=True,
+    ), store_phi=False, seed=0)
+    fused_backward.reset_launch_counts()
+    Xs, Us, _, x0s = seed_wl.carry
+    card_vs_cpu("5 two-QP", 15, 16, lambda opts, device: opts._replace(
+        verbose=False, sls_block=-1 if device == "cuda" else 0,
+    ), store_phi=True, seed=1, nominal=(Xs, Us, x0s))
+    if fused_backward.launch_counts()["backward_K"] <= 0:
+        fail("the two-QP step on the card did not launch backward_K")
 
 
 def run_bench(label, wl):
@@ -483,6 +540,7 @@ def run_bench(label, wl):
     record, carry = bench.run(wl)
     launches = bench.launch_counts()
     say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
+        f"sls_block={record['sls_block']} "
         f"ran in {time.perf_counter() - t0:.1f} s, launches {launches}")
     print(json.dumps(record), flush=True)
     if record["success_fraction"] != 1.0 or not record["finite"]:
@@ -500,22 +558,32 @@ def breakdown(label, wl, carry):
     return {"stages": stages, "profile": prof}
 
 
-def bench_phases():
-    """Phases 6 and 7: the main path (K1, K2) and the fused-kernel path (K6,
-    K4). Both start from one SQP seed and run twice, in the order default,
-    fused, fused, default, so the host's drift shows in the pairs. Returns
-    each kernel's launches in the first run of its path."""
+def bench_workloads():
+    """The workloads of phases 6, 7 and 8, from one SQP seed."""
     t0 = time.perf_counter()
     wls = {"6": bench.build_workload()}
     wls["7"] = bench.build_workload(kkt="fused_iter", response="fused", seed_from=wls["6"])
+    wls["8"] = bench.build_workload(sls_block=-1, seed_from=wls["6"])
     say(f"[6] bench workloads built (one SQP seed) in {time.perf_counter() - t0:.1f} s")
-    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response")}
-    launches, profile = {}, {"6": {"records": []}, "7": {"records": []}}
-    for label in ("6", "7", "7", "6"):
+    return wls
+
+
+def bench_phases(wls):
+    """Phases 6, 7 and 8: the main path (K1, K2), the fused-kernel path (K6,
+    K4) and the sls_block = -1 path (K3), all from one SQP seed. Phases 6
+    and 7 run twice, in the order default, fused, fused, default, so the
+    host's drift shows in the pairs; phase 8 runs once. Returns each
+    kernel's launches in the first run of its path."""
+    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response"),
+                    "8": ("backward_K",)}
+    launches, profile = {}, {label: {"records": []} for label in wls}
+    for label in ("6", "7", "7", "6", "8"):
         record, carry, counts = run_bench(label, wls[label])
         kernels = path_kernels[label]
         if min(counts[k] for k in kernels) <= 0:
             fail(f"the bench path [{label}] did not launch {kernels}: {counts}")
+        if min(record["kernel_launches"][k] for k in kernels) <= 0:
+            fail(f"the bench path [{label}] did not launch {kernels} in the timed steps")
         profile[label]["records"].append(record)
         if "stages" not in profile[label]:
             launches.update({k: counts[k] for k in kernels})
@@ -541,14 +609,16 @@ def main():
 
     main_err = check_kernels()
     times = time_kernels()
+    fused_bwd_bench.main()
     check_solve_qp()
     check_fused_iter()
-    check_closed_loop()
+    wls = bench_workloads()
+    check_closed_loop(wls["6"])
 
-    launches = bench_phases()
+    launches = bench_phases(wls)
 
     kernels = []
-    for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response"):
+    for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response", "backward_K"):
         bound_ms, bound_by = kernel_bound(k)
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

@@ -3,8 +3,10 @@
 Synthesis), for NVIDIA Hopper GPUs.
 
 Each module mirrors its counterpart in the JAX package and is held against
-it by the tests under `tests/test_torch_*.py`. The fused IPM Newton solves
-are hand-written CUDA kernels (`csrc/fused_qp.cu`, bound by `ops/fused_qp.py`);
+it by the tests under `tests/test_torch_*.py`. Each Pallas kernel of the JAX
+package has a hand-written CUDA counterpart in `csrc/` (the IPM Newton solves
+and the whole Mehrotra iteration, `ops/fused_qp.py`; the fused response,
+`ops/fused_response.py`; the SLS backward Riccati, `ops/fused_backward.py`);
 everything else is PyTorch. A leading batch dimension takes the place of
 `jax.vmap`.
 """

@@ -12,12 +12,16 @@ QP tolerance 3e-5, every lane seeded by the SQP with the chunked soft-slack
 fallback. The tube synthesis runs at full float32 ("highest"): the JAX
 package's reduced-precision tube mode is not ported, and TF32 stays off.
 
-`build_workload(kkt=..., response=...)` picks the IPM's Newton path
-("fused", the default, or "fused_iter": the whole iteration as one kernel;
-"riccati") and the response ("streaming", the default; "materialized": the
-Phi-materializing stages; "fused": the fused response kernel), the twins of
-the JAX bench's RNM_BENCH_KKT and RNM_BENCH_STREAMING. The fused-kernel
-configuration is kkt="fused_iter", response="fused".
+`build_workload(kkt=..., response=..., sls_block=...)` picks the IPM's
+Newton path ("fused", the default, or "fused_iter": the whole iteration as
+one kernel; "riccati"), the response ("streaming", the default;
+"materialized": the Phi-materializing stages; "fused": the fused response
+kernel), the twins of the JAX bench's RNM_BENCH_KKT and
+RNM_BENCH_STREAMING, and the SLS kernels (`fast_sls.select_sls_kernels`):
+by default 2 on the card (the triangular column-blocked kernels, as the JAX
+bench sets on an accelerator) and 0 on the CPU (the folded ones); -1 runs
+the hand-written backward kernel. The fused-kernel configuration is
+kkt="fused_iter", response="fused".
 
 Prints ONE JSON line. Usage: python -m robust_nonlinear_mpc_torch.bench
 """
@@ -32,7 +36,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from robust_nonlinear_mpc_torch.ops import fused_qp, fused_response
+from robust_nonlinear_mpc_torch.ops import fused_backward, fused_qp, fused_response
 
 METRIC = "rocket_sls_mpc_solves_per_s"
 RESPONSES = ("streaming", "materialized", "fused")
@@ -41,11 +45,13 @@ RESPONSES = ("streaming", "materialized", "fused")
 def reset_launch_counts():
     fused_qp.reset_launch_counts()
     fused_response.reset_launch_counts()
+    fused_backward.reset_launch_counts()
 
 
 def launch_counts():
     """Launches of every CUDA kernel of the port since the last reset."""
-    return {**fused_qp.launch_counts(), **fused_response.launch_counts()}
+    return {**fused_qp.launch_counts(), **fused_response.launch_counts(),
+            **fused_backward.launch_counts()}
 
 
 class BenchWorkload(NamedTuple):
@@ -62,6 +68,7 @@ class BenchWorkload(NamedTuple):
     device: Any
     n_soft_fallback: int
     response: str
+    sls_block: int
 
 
 def gpu_identity():
@@ -72,6 +79,20 @@ def gpu_identity():
     ).stdout.strip().splitlines()[0]
     name, limit = [s.strip() for s in line.rsplit(",", 1)]
     return name, float(limit.split()[0]), line
+
+
+def cuda_ms(fn, n):
+    """Mean time (ms) of one call of `fn`: CUDA events around n calls, after
+    one call to warm up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def require_cuda():
@@ -109,12 +130,14 @@ def seed_nominal(m, solver, x0s):
 
 def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
                    n_warm=30, N=15, kkt="fused", response="streaming",
+                   sls_block: int | None = None,
                    seed_from: BenchWorkload | None = None) -> BenchWorkload:
     """The bench's workload; the defaults are the benchmarked configuration
-    (the CPU tests build it at a tiny size). `seed_from`: a workload of the
-    same size whose SQP seed is reused (the seed does not depend on `kkt` or
-    `response`), so that two configurations start from the same lanes
-    without seeding twice."""
+    (the CPU tests build it at a tiny size). `sls_block` None is 2 on the
+    card and 0 on the CPU. `seed_from`: a workload of the same size whose
+    SQP seed is reused (the seed does not depend on `kkt`, `response` or
+    `sls_block`), so that several configurations start from the same lanes
+    without seeding again."""
     if response not in RESPONSES:
         raise ValueError(f"response must be one of {RESPONSES}, got {response!r}")
     from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
@@ -126,6 +149,8 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
     from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 
     m, solver = make_rocket_problem(N=N, device=device, dtype=dtype)
+    if sls_block is None:
+        sls_block = 2 if torch.device(device).type == "cuda" else 0
     qp_iters, cold_cap = 6, 15
     solver.opts = solver.opts._replace(
         verbose=False,
@@ -134,7 +159,7 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
         ipm_first=IPMOptions(max_iter=8, tol=1e-3, kkt=kkt),
         streaming_response=response == "streaming",
         use_pallas_response=response == "fused",
-        recycle_eta=True, recycle_warm_qp=True,
+        recycle_eta=True, recycle_warm_qp=True, sls_block=sls_block,
     )
     rng = np.random.default_rng(0)
     x0s = torch.as_tensor(
@@ -157,7 +182,7 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
         carry=(Xs, Us, persist, x0s), w_seq=w_seq, B=B, n_rep=n_rep,
         n_warm=n_warm, budget_mode=f"adaptive({qp_iters},{cold_cap})",
         dtype=dtype, device=torch.device(device), n_soft_fallback=n_fb,
-        response=response,
+        response=response, sls_block=sls_block,
     )
 
 
@@ -171,15 +196,19 @@ def stage_breakdown(wl: BenchWorkload, carry, w, reps=5):
     """Median host-clock time (ms) of the stages of one step on the given
     state, synchronized after every stage. `fast_sls` is the whole fast-SLS
     solve (backward Riccati + response + the warm-started QP + eta refresh),
-    so its QP part is `fast_sls - backward_riccati - response`. `response`
-    is the configured one."""
-    from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_folded
-    from robust_nonlinear_mpc_torch.solvers.fast_sls import compute_response, fast_sls_solve
+    so its QP part is `fast_sls - backward_riccati - response`. The backward
+    Riccati and the response are the configured ones."""
+    from robust_nonlinear_mpc_torch.solvers.fast_sls import (
+        compute_response,
+        fast_sls_solve,
+        select_sls_kernels,
+    )
 
     solver = wl.solver
     X, U, persist, x = carry
     prob = solver.prob
     fopts = solver._fast_sls_opts()
+    backward = select_sls_kernels(fopts.sls_block)[0]
     Gmat = torch.cat([prob.stat.Gx, prob.stat.Gu], dim=1)
     samples = {k: [] for k in ("linearize", "backward_riccati", "response", "fast_sls", "step")}
 
@@ -194,7 +223,7 @@ def stage_breakdown(wl: BenchWorkload, carry, w, reps=5):
     for _ in range(reps):
         dev = timed("linearize", lambda: solver.assemble_deviation_problem(X, U, x))
         A, B = dev[0], dev[1]
-        K = timed("backward_riccati", lambda: backward_solve_folded(
+        K = timed("backward_riccati", lambda: backward(
             A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1])
         timed("response", lambda: compute_response(
             prob, A, B, K, fopts, persist.Phi_x, persist.Phi_u))
@@ -300,6 +329,7 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 50):
         "tube_precision": "highest",
         "kkt": wl.solver.opts.ipm.kkt,
         "response": wl.response,
+        "sls_block": wl.sls_block,
         "kernel_launches": launches,
         "soft_fallback_lanes": wl.n_soft_fallback,
         "single_step_latency_ms": round(1e3 * float(np.median(lats)), 3),

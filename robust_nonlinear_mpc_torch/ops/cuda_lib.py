@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources in `csrc/` (`fused_qp.cu`: the Newton kernels, `fused_ipm.cu`:
-the whole-iteration kernel, `fused_response.cu`: the response kernel) are
+the whole-iteration kernel, `fused_response.cu`: the response kernel,
+`fused_backward.cu`: the SLS backward Riccati kernel) are
 compiled with nvcc for sm_90a on first use, by `torch.utils.cpp_extension.load`
 (ninja builds the sources in parallel), into one shared library under
 `build/robust_nonlinear_mpc_torch/` next to the package. The library has a
@@ -19,7 +20,8 @@ import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
-SOURCES = [CSRC / "fused_qp.cu", CSRC / "fused_ipm.cu", CSRC / "fused_response.cu"]
+SOURCES = [CSRC / "fused_qp.cu", CSRC / "fused_ipm.cu", CSRC / "fused_response.cu",
+           CSRC / "fused_backward.cu"]
 BUILD_DIR = _PKG_DIR.parent / "build" / "robust_nonlinear_mpc_torch"
 
 _LIB = None
@@ -52,6 +54,7 @@ def build_extension(verbose: bool = False):
         "rnm_factor_predictor": [ptr] * 20 + [i32] * 4 + [ptr],
         "rnm_resolve": [ptr] * 16 + [i32] * 4 + [ptr],
         "rnm_ipm_iter": [ptr, i32] + [i32] * 6 + [f64, f64, ptr],
+        "rnm_backward_K": [ptr] * 11 + [i32] * 6 + [ptr],
     }
     for name, argtypes in signatures.items():
         for suffix in ("f32", "f64"):

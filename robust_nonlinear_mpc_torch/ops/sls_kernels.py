@@ -1,11 +1,12 @@
 """fast-SLS tube synthesis: dual extraction, the column-wise backward
 Riccati, the Phi-free streaming response and the Phi-materializing stages
-(propagation, backoffs, tube cost). Port of the GEMM-folded forms and of
-`propagate` / `backoff_from_phi` / `tube_cost` in
-`robust_nonlinear_mpc_tpu/ops/sls_kernels.py`.
+(propagation, backoffs, tube cost). Port of the GEMM-folded and the
+triangular column-blocked forms and of `propagate` / `backoff_from_phi` /
+`tube_cost` in `robust_nonlinear_mpc_tpu/ops/sls_kernels.py`.
 
 Everything here is plain torch: the JAX package computes these stages with
-XLA outside any Pallas kernel. Every function is batch-leading: A (B, N, nx,
+XLA outside any Pallas kernel (the hand-written backward is
+`ops/fused_backward.py`). Every function is batch-leading: A (B, N, nx,
 nx), B (B, N, nx, nu), eta (B, N, N, ni), K (B, N, N+1, nu, nx); the
 constraint geometry, E and the regularizers are shared by all lanes.
 Index conventions follow the JAX module (eta[k, j] defined for k >= j).
@@ -85,6 +86,61 @@ def backward_solve_folded(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
     return S, torch.stack(K_st, dim=1)
 
 
+def backward_solve_blocked(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs, block=8):
+    """`backward_solve_folded` with triangular column blocking: the stages
+    run in segments of `block`, high to low, and segment [lo, hi) carries
+    only the `hi` columns that can be active there (column j is active at
+    stages k >= j); K and S are padded back to J = N+1 columns. Same outputs
+    to roundoff.
+
+    The step body repeats `backward_solve_folded`'s on purpose, as in the
+    JAX package (each is held against its own JAX twin); a fix to one is
+    made in both, and tests/test_torch_backward.py pins them equal."""
+    Bsz, N, nx = A.shape[0], A.shape[1], A.shape[2]
+    nu = B.shape[3]
+    J = N + 1
+    Gx = Gmat[:, :nx]
+    Gu = Gmat[:, nx:]
+    ni = Gx.shape[0]
+    GGx = (Gx[:, :, None] * Gx[:, None, :]).reshape(ni, nx * nx)
+    GGu = (Gu[:, :, None] * Gu[:, None, :]).reshape(ni, nu * nu)
+    GGf = (Gf[:, :, None] * Gf[:, None, :]).reshape(Gf.shape[0], nx * nx)
+
+    SN = sym((eta_f @ GGf).reshape(Bsz, J, nx, nx) + regs.Q_reg_f)
+    eta_pad = torch.cat([eta, eta.new_zeros((Bsz, N, 1, ni))], dim=2)
+
+    S_all = SN
+    K_st, S_st = [None] * N, [None] * N
+    for s in reversed(range(-(-N // block))):
+        lo, hi = s * block, min((s + 1) * block, N)
+        W = hi
+        js = torch.arange(W, device=A.device)
+        S_all = S_all[:, :W]
+        for k in reversed(range(lo, hi)):
+            A_k, B_k, eta_k = A[:, k], B[:, k], eta_pad[:, k, :W]
+            Cxx = (eta_k @ GGx).reshape(Bsz, W, nx, nx) + regs.Q_reg
+            Cuu = (eta_k @ GGu).reshape(Bsz, W, nu, nu) + regs.R_reg
+            S_flat = S_all.reshape(Bsz, W * nx, nx)
+            SA = (S_flat @ A_k).reshape(Bsz, W, nx, nx)
+            SB = (S_flat @ B_k).reshape(Bsz, W, nx, nu)
+            SBt = SB.transpose(-1, -2).reshape(Bsz, W * nu, nx)
+            H = Cuu + (SBt @ B_k).reshape(Bsz, W, nu, nu)
+            F = (SBt @ A_k).reshape(Bsz, W, nu, nx)
+            K = -spd_solve_small(sym(H), F)
+            SAt = SA.transpose(-1, -2).reshape(Bsz, W * nx, nx)
+            AtSA = (SAt @ A_k).reshape(Bsz, W, nx, nx)
+            AtSBK = F.transpose(-1, -2) @ K
+            S_new = sym(Cxx + AtSA + AtSBK)
+            active = (k >= js)[None, :, None, None]
+            S_all = torch.where(active, S_new, S_all)
+            pad = (0, 0, 0, 0, 0, J - W)
+            S_st[k] = torch.nn.functional.pad(
+                torch.where(active, S_new, torch.zeros_like(S_new)), pad)
+            K_st[k] = torch.nn.functional.pad(torch.where(active, K, torch.zeros_like(K)), pad)
+    S = torch.stack(S_st + [SN], dim=1)
+    return S, torch.stack(K_st, dim=1)
+
+
 def response_streaming_folded(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon):
     """Fused propagate + backoffs + tube cost that never materializes Phi.
 
@@ -123,6 +179,62 @@ def response_streaming_folded(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon):
         P = torch.where((cols <= k)[None, None, :, None], nxt, torch.zeros_like(nxt))
 
     last = torch.where((cols == N)[None, None, :, None], E[N][None, :, None, :], P)
+    last_flat = last.reshape(Bsz, nx, J * nw)
+    Zf = Gf @ last_flat
+    beta_f = torch.clamp(
+        (Zf.reshape(Bsz, -1, J, nw) ** 2).sum(dim=-1), min=epsilon
+    ).transpose(1, 2)
+    backoff_f = torch.sqrt(beta_f).sum(dim=1)
+    qf = regs.Q_reg_f @ last_flat
+    cost_tube = torch.sqrt(cost_acc + (qf * qf).sum(dim=(1, 2)))
+    return (torch.stack(beta, dim=1), beta_f, torch.stack(backoff, dim=1),
+            backoff_f, cost_tube)
+
+
+def response_streaming_blocked(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon, block=8):
+    """`response_streaming_folded` with triangular column blocking (the
+    forward mirror of `backward_solve_blocked`): the stages run in segments
+    of `block`, low to high, and segment [lo, hi) carries only the columns
+    j < hi that can be active there; the carry gains a zero column block at
+    each segment boundary. Same outputs to roundoff.
+
+    The step body repeats `response_streaming_folded`'s on purpose (see
+    `backward_solve_blocked`)."""
+    Bsz, N, nx = A.shape[0], A.shape[1], A.shape[2]
+    nw = E.shape[2]
+    J = N + 1
+    P = A.new_zeros((Bsz, nx, min(block, N), nw))
+    cost_acc = A.new_zeros((Bsz,))
+    beta, backoff = [], []
+    for s in range(-(-N // block)):
+        lo, hi = s * block, min((s + 1) * block, N)
+        W = hi
+        cols = torch.arange(W, device=A.device)
+        P = torch.nn.functional.pad(P, (0, 0, 0, W - P.shape[2]))
+        for k in range(lo, hi):
+            A_k, B_k, K_k = A[:, k], B[:, k], K[:, k, :W]
+            P = torch.where((cols == k)[None, None, :, None], E[k][None, :, None, :], P)
+            phi_u = torch.einsum("bjui,bijw->bujw", K_k, P)
+            P_flat = P.reshape(Bsz, nx, W * nw)
+            pu_flat = phi_u.reshape(Bsz, -1, W * nw)
+            Z = Gx @ P_flat + Gu @ pu_flat
+            beta_all = (Z.reshape(Bsz, -1, W, nw) ** 2).sum(dim=-1)
+            tri = (cols <= k)[None, :, None]
+            beta_row = torch.where(tri, torch.clamp(beta_all.transpose(1, 2), min=epsilon),
+                                   torch.zeros_like(beta_all.transpose(1, 2)))
+            beta.append(torch.nn.functional.pad(beta_row, (0, 0, 0, N - W)))
+            backoff.append(torch.sqrt(beta_row).sum(dim=1))
+
+            qx = regs.Q_reg @ P_flat
+            ru = regs.R_reg @ pu_flat
+            cost_acc = cost_acc + (qx * qx).sum(dim=(1, 2)) + (ru * ru).sum(dim=(1, 2))
+
+            nxt = (A_k @ P_flat + B_k @ pu_flat).reshape(Bsz, nx, W, nw)
+            P = torch.where((cols <= k)[None, None, :, None], nxt, torch.zeros_like(nxt))
+
+    cols = torch.arange(J, device=A.device)
+    last = torch.nn.functional.pad(P, (0, 0, 0, J - P.shape[2]))
+    last = torch.where((cols == N)[None, None, :, None], E[N][None, :, None, :], last)
     last_flat = last.reshape(Bsz, nx, J * nw)
     Zf = Gf @ last_flat
     beta_f = torch.clamp(

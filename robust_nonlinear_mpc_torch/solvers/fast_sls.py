@@ -1,21 +1,29 @@
-"""fast-SLS tube synthesis in its dual-recycling RTI form (port of the
-`recycle_eta` branch of `robust_nonlinear_mpc_tpu/solvers/fast_sls.py`).
+"""fast-SLS tube synthesis (port of `robust_nonlinear_mpc_tpu/solvers/fast_sls.py`).
 
-One tightened QP per solve: the backward Riccati uses the eta weights kept
-from the previous solve's QP duals, the response computes the backoffs of
-the current linearization and gains, and the QP is warm-started from the
-previous solve's QP solution. All state is batch-leading. The response is
-one of three (`compute_response`): the Phi-free streaming form, the
+Two branches, as in the JAX package, all state batch-leading:
+* the two-QP iteration of the reference (`recycle_eta=False`): an
+  untightened entry QP (with `ipm_first`), then per iteration eta from the
+  QP duals, the backward Riccati, the response, the retightened QP; RTI mode
+  runs `rti_steps` iterations and a final QP, the until-convergence mode
+  iterates to the primal criterion (at most `max_iter`) as a masked batch
+  loop in which a lane that has stopped keeps its state;
+* the dual-recycling RTI (`recycle_eta=True`): one tightened QP per solve,
+  the backward Riccati on the eta kept from the previous solve's QP duals,
+  the QP warm-started from the previous solution (`recycle_warm_qp`).
+
+`select_sls_kernels(sls_block)` picks the backward Riccati and the
+streaming response: folded (0), column-blocked (> 0), or the hand-written
+backward kernel with the blocked response (-1). The response is one of
+three (`compute_response`): the Phi-free streaming form, the
 Phi-materializing stages, or the fused CUDA kernel (`use_pallas_response`,
 `ops/fused_response.py`).
 
-Not ported (they raise NotImplementedError): the two-QP RTI and
-until-convergence branches, the column-blocked and lane-packed SLS kernels
-and column sharding.
+Not ported (it raises NotImplementedError): column sharding.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -28,16 +36,19 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     QPStatics,
     solve_qp,
 )
+from robust_nonlinear_mpc_torch.ops.fused_backward import backward_K
 from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     SLSRegs,
     backoff_from_phi,
+    backward_solve_blocked,
     backward_solve_folded,
     evaluate_dual_eta,
     propagate,
+    response_streaming_blocked,
     response_streaming_folded,
     tube_cost,
 )
-from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where
+from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where, tree_where
 
 
 class SLSProblem(NamedTuple):
@@ -52,6 +63,9 @@ class FastSLSOptions(NamedTuple):
     max_iter: int = 30
     conv_tol: float = 1e-3
     epsilon_backoff: float = 1e-10
+    # warm-start each retightened QP of the two-QP iteration from the
+    # previous one (off, as in the JAX package)
+    warm_start_qp: bool = False
     use_pallas_response: bool = False
     streaming_response: bool = False
     recycle_eta: bool = False
@@ -160,26 +174,36 @@ class FastSLSSolution(NamedTuple):
     qp_kkt: torch.Tensor
 
 
+def select_sls_kernels(block: int):
+    """(backward_solve, response_streaming) for a column-block size (the JAX
+    `select_sls_kernels`). block = 0: the GEMM-folded kernels; block > 0: the
+    triangular column-blocked ones with stage segments of `block`; block = -1:
+    the hand-written backward kernel (`ops/fused_backward.backward_K`, the
+    counterpart of the Pallas `_backward_kernel`; K only, S is None) with the
+    column-blocked response at block 2. Each backward returns (S, K)."""
+    if block == -1:
+        def backward(A, B, Gmat, Gf, eta, eta_f, regs):
+            return None, backward_K(A, B, Gmat, Gf, eta, eta_f, regs)
+
+        return backward, functools.partial(response_streaming_blocked, block=2)
+    if block > 0:
+        return (functools.partial(backward_solve_blocked, block=block),
+                functools.partial(response_streaming_blocked, block=block))
+    if block == 0:
+        return backward_solve_folded, response_streaming_folded
+    raise ValueError(f"sls_block must be -1, 0 or positive, got {block}")
+
+
 def _check_options(opts: FastSLSOptions):
-    missing = [
-        (not opts.recycle_eta,
-         "the two-QP RTI and until-convergence fast-SLS branches "
-         "(recycle_eta=False) are not ported: ROADMAP.md Open items 1.5"),
-        (opts.sls_block != 0,
-         "the column-blocked / lane-packed SLS kernels (sls_block != 0) are "
-         "not ported: ROADMAP.md Open items 1.4"),
-        (opts.column_mesh is not None,
-         "column sharding is not ported: ROADMAP.md Open items 1.11"),
-    ]
-    for bad, msg in missing:
-        if bad:
-            raise NotImplementedError(msg)
+    if opts.column_mesh is not None:
+        raise NotImplementedError("column sharding is not ported: ROADMAP.md Open items 1.11")
 
 
 def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x, phi_like_u):
     """Propagation + backoffs + tube cost by the configured path: the fused
-    CUDA kernel (float32, cast back), the streaming form (zero Phi buffers
-    shaped like `phi_like_*`) or the Phi-materializing stages. Returns
+    CUDA kernel (float32, cast back), the streaming form that
+    `select_sls_kernels(opts.sls_block)` picks (zero Phi buffers shaped like
+    `phi_like_*`) or the Phi-materializing stages. Returns
     (Phi_x, Phi_u, beta, beta_f, backoff, backoff_f, cost_tube)."""
     stat, eps = prob.stat, opts.epsilon_backoff
     if opts.use_pallas_response:
@@ -188,7 +212,8 @@ def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x
         out = fused_response(A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, *prob.regs, eps=eps)
         return tuple(t.to(A.dtype) for t in out)
     if opts.streaming_response:
-        nbeta, nbeta_f, nboff, nboff_f, ct = response_streaming_folded(
+        response_streaming = select_sls_kernels(opts.sls_block)[1]
+        nbeta, nbeta_f, nboff, nboff_f, ct = response_streaming(
             A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, prob.regs, eps
         )
         return (torch.zeros_like(phi_like_x), torch.zeros_like(phi_like_u),
@@ -198,18 +223,70 @@ def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x
     return (Phi_x, Phi_u, *backoff_from_phi(Phi_x, Phi_u, stat.Gx, stat.Gu, stat.Gf, eps), ct)
 
 
+class _Carry(NamedTuple):
+    """Per-lane state of the two-QP iteration (the JAX `Carry`)."""
+
+    sol: QPSolution
+    eta: torch.Tensor
+    eta_f: torch.Tensor
+    K: torch.Tensor
+    Phi_x: torch.Tensor
+    Phi_u: torch.Tensor
+    beta: torch.Tensor
+    beta_f: torch.Tensor
+    backoff: torch.Tensor
+    backoff_f: torch.Tensor
+    backoff_x: torch.Tensor
+    backoff_u: torch.Tensor
+    applied: torch.Tensor
+    applied_f: torch.Tensor
+    cost_tube: torch.Tensor
+    prev_primal: torch.Tensor
+    have_prev: torch.Tensor
+    converged: torch.Tensor
+    infeasible: torch.Tensor
+    iteration_number: torch.Tensor
+    qp_iters: torch.Tensor
+    qp_kkt: torch.Tensor
+
+
+def _backoff_xu(nboff, nboff_f, nx, nu):
+    return (torch.cat([nboff[:, :, :nx], nboff_f[:, None, :nx]], dim=1),
+            nboff[:, :, nx : nx + nu])
+
+
+def _print_rows(carry: _Carry, delta_primal, lanes):
+    """The per-iteration table of the reference fast-SLS (one row per lane
+    that stepped), printed from the host."""
+    lanes = lanes.nonzero().flatten().tolist()
+    it = carry.iteration_number.tolist()
+    if any(it[b] <= 1 for b in lanes):
+        print("\t{:>4} {:>10} {:>11} {:>11} {:>11} {:>6}".format(
+            "it", "Δ primal", "cost nom.", "cost tube", "cost total", "qp it"))
+    cn, ct, dp = carry.sol.cost.tolist(), carry.cost_tube.tolist(), delta_primal.tolist()
+    qi = carry.qp_iters.tolist()
+    for b in lanes:
+        print(f"\t{it[b]:>4} {dp[b]:>10.2e} {cn[b]:>11.4e} {ct[b]:>11.4e} "
+              f"{cn[b] + ct[b]:>11.4e} {qi[b]:>6}")
+
+
 def fast_sls_solve(
     prob: SLSProblem,
     A, B, c, qx, qu, g_res, gf_res, xinit_dev,
     persist: FastSLSPersist,
     opts: FastSLSOptions,
 ) -> FastSLSSolution:
-    """One dual-recycling fast-SLS solve for a batch of deviation problems:
+    """One fast-SLS solve for a batch of deviation problems:
     A (B, N, nx, nx), B (B, N, nx, nu), c (B, N, nx), qx (B, N+1, nx),
-    qu (B, N, nu), g_res (B, N, ni), gf_res (B, ni_f), xinit_dev (B, nx)."""
+    qu (B, N, nu), g_res (B, N, ni), gf_res (B, ni_f), xinit_dev (B, nx).
+    `opts.recycle_eta` selects the one-QP dual-recycling branch, else the
+    two-QP iteration runs (RTI when `opts.rti_steps` > 0)."""
     _check_options(opts)
-    N, nx = c.shape[1], c.shape[2]
+    bwd_solve = select_sls_kernels(opts.sls_block)[0]
+    Bsz, N, nx = c.shape
     nu = B.shape[3]
+    ni, ni_f = prob.stat.Gx.shape[0], prob.stat.Gf.shape[0]
+    dtype, device = A.dtype, A.device
     eps = opts.epsilon_backoff
     Gmat = torch.cat([prob.stat.Gx, prob.stat.Gu], dim=1)
 
@@ -218,6 +295,13 @@ def fast_sls_solve(
     if opts.adaptive_ipm_budget is not None:
         steady_cap, cold_cap = opts.adaptive_ipm_budget
         budget = torch.where(persist.qp_steady, steady_cap, cold_cap).to(torch.int32)
+
+    def forward(applied, applied_f, init=None, first=False):
+        data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - applied,
+                      hf=gf_res - applied_f, xinit=xinit_dev)
+        use_first = first and opts.ipm_first is not None
+        return solve_qp(prob.stat, data, opts.ipm_first if use_first else opts.ipm,
+                        init=init, max_iter_dyn=None if use_first else budget)
 
     def warm_init():
         w = persist.qp_warm
@@ -241,42 +325,148 @@ def fast_sls_solve(
             valid=keep | w.valid,
         )
 
-    K_r = backward_solve_folded(
-        A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs
-    )[1]
-    Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
-        prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
+    def next_steady(sol):
+        return persist.qp_steady if steady_cap is None else sol.success & (sol.iters < steady_cap)
+
+    if opts.recycle_eta:
+        # dual-recycling RTI: K from the persisted eta, one tightened QP
+        K_r = bwd_solve(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1]
+        Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
+            prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
+        )
+        sol = forward(nboff, nboff_f, init=warm_init() if opts.recycle_warm_qp else None)
+        y = pack_primal(sol.X, sol.U)
+        conv = persist.have_prev & (lane_max_abs(y - persist.prev_primal) <= opts.conv_tol)
+        eta_n, eta_f_n = evaluate_dual_eta(sol.lam, sol.lam_f, nbeta, nbeta_f, eps)
+        refresh = sol.success & ~conv
+        eta_n = lane_where(refresh, eta_n, persist.eta)
+        eta_f_n = lane_where(refresh, eta_f_n, persist.eta_f)
+        new_persist = FastSLSPersist(
+            prev_primal=y, have_prev=torch.ones_like(persist.have_prev),
+            eta=eta_n, eta_f=eta_f_n, K=K_r,
+            Phi_x=Phi_x, Phi_u=Phi_u, cost_tube=ct,
+            qp_warm=update_warm(sol), qp_steady=next_steady(sol),
+        )
+        backoff_x, backoff_u = _backoff_xu(nboff, nboff_f, nx, nu)
+        return FastSLSSolution(
+            X=sol.X, U=sol.U, y=y, lam=sol.lam, lam_f=sol.lam_f,
+            eta=eta_n, eta_f=eta_f_n, K=K_r, Phi_x=Phi_x, Phi_u=Phi_u,
+            beta=nbeta, beta_f=nbeta_f, backoff=nboff, backoff_f=nboff_f,
+            backoff_x=backoff_x, backoff_u=backoff_u,
+            cost_nominal=sol.cost, cost_tube=ct,
+            iteration_number=torch.where(conv, 0, 1).to(torch.int32),
+            success=sol.success, persist=new_persist,
+            qp_iters=sol.iters, qp_kkt=sol.kkt_res,
+        )
+
+    # two-QP iteration: the untightened entry QP, then eta -> backward ->
+    # response -> retighten -> QP, per lane, until the RTI count or convergence
+    zeros = lambda *s: torch.zeros((Bsz,) + s, dtype=dtype, device=device)
+    flag = lambda v: torch.full((Bsz,), v, dtype=torch.bool, device=device)
+    # the tube at solve entry (reference initialize_backoff): beta = eps,
+    # and the backoff sums sqrt(eps) over all N columns
+    beta0 = torch.full((Bsz, N, N, ni), eps, dtype=dtype, device=device)
+    beta_f0 = torch.full((Bsz, N + 1, ni_f), eps, dtype=dtype, device=device)
+    entry = forward(zeros(N, ni), zeros(ni_f), first=True)
+    carry = _Carry(
+        sol=entry, eta=persist.eta, eta_f=persist.eta_f, K=persist.K,
+        Phi_x=persist.Phi_x, Phi_u=persist.Phi_u, beta=beta0, beta_f=beta_f0,
+        backoff=torch.sqrt(beta0).sum(dim=2), backoff_f=torch.sqrt(beta_f0).sum(dim=1),
+        backoff_x=zeros(N + 1, nx), backoff_u=zeros(N, nu),
+        applied=zeros(N, ni), applied_f=zeros(ni_f), cost_tube=persist.cost_tube,
+        prev_primal=persist.prev_primal, have_prev=persist.have_prev,
+        converged=flag(False), infeasible=~entry.success,
+        iteration_number=torch.zeros((Bsz,), dtype=torch.int32, device=device),
+        qp_iters=entry.iters, qp_kkt=entry.kkt_res,
     )
 
-    data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - nboff,
-                  hf=gf_res - nboff_f, xinit=xinit_dev)
-    sol = solve_qp(prob.stat, data, opts.ipm,
-                   init=warm_init() if opts.recycle_warm_qp else None,
-                   max_iter_dyn=budget)
-    y = pack_primal(sol.X, sol.U)
-    conv = persist.have_prev & (lane_max_abs(y - persist.prev_primal) <= opts.conv_tol)
-    eta_n, eta_f_n = evaluate_dual_eta(sol.lam, sol.lam_f, nbeta, nbeta_f, eps)
-    refresh = sol.success & ~conv
-    eta_n = lane_where(refresh, eta_n, persist.eta)
-    eta_f_n = lane_where(refresh, eta_f_n, persist.eta_f)
-    qp_steady = (
-        persist.qp_steady if steady_cap is None
-        else sol.success & (sol.iters < steady_cap)
-    )
+    def sls_update(carry: _Carry) -> _Carry:
+        """eta -> backward Riccati -> response -> retighten."""
+        sol = carry.sol
+        eta, eta_f = evaluate_dual_eta(sol.lam, sol.lam_f, carry.beta, carry.beta_f, eps)
+        K = bwd_solve(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)[1]
+        Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
+            prob, A, B, K, opts, carry.Phi_x, carry.Phi_u
+        )
+        backoff_x, backoff_u = _backoff_xu(nboff, nboff_f, nx, nu)
+        return carry._replace(
+            eta=eta, eta_f=eta_f, K=K, Phi_x=Phi_x, Phi_u=Phi_u,
+            beta=nbeta, beta_f=nbeta_f, backoff=nboff, backoff_f=nboff_f,
+            backoff_x=backoff_x, backoff_u=backoff_u,
+            applied=nboff, applied_f=nboff_f, cost_tube=ct,
+            iteration_number=carry.iteration_number + 1,
+        )
+
+    def step(carry: _Carry, resolve_forward: bool):
+        """One iteration (the reference `_step`): a fresh QP on the current
+        tightened bounds unless it is the first, the convergence check, and
+        the tube update on the lanes neither converged nor infeasible.
+        Returns the new carry and the primal change."""
+        if resolve_forward:
+            sol = forward(carry.applied, carry.applied_f,
+                          init=carry.sol if opts.warm_start_qp else None)
+            carry = carry._replace(
+                sol=sol, infeasible=carry.infeasible | ~sol.success,
+                qp_iters=carry.qp_iters + sol.iters,
+                qp_kkt=torch.maximum(carry.qp_kkt, sol.kkt_res),
+            )
+        y = pack_primal(carry.sol.X, carry.sol.U)
+        delta_primal = lane_max_abs(y - carry.prev_primal)
+        conv = carry.have_prev & (delta_primal <= opts.conv_tol)
+        carry = carry._replace(prev_primal=y, have_prev=torch.ones_like(carry.have_prev))
+        carry = tree_where(~(conv | carry.infeasible), sls_update(carry), carry)
+        return carry._replace(converged=carry.converged | conv), delta_primal
+
+    carry, delta = step(carry, resolve_forward=False)
+    if opts.verbose:
+        _print_rows(carry, delta, flag(True))
+    if opts.rti_steps:
+        # RTI: exactly max(rti_steps, 1) iterations, then the final QP
+        for _ in range(1, max(int(opts.rti_steps), 1)):
+            carry, delta = step(carry, resolve_forward=True)
+            if opts.verbose:
+                _print_rows(carry, delta, flag(True))
+        final = forward(carry.applied, carry.applied_f,
+                        init=carry.sol if opts.warm_start_qp else None)
+        # keep the last feasible solution where the loop already failed
+        use_final = ~carry.infeasible
+        carry = carry._replace(
+            sol=tree_where(use_final, final, carry.sol),
+            infeasible=carry.infeasible | (use_final & ~final.success),
+            qp_iters=carry.qp_iters + torch.where(use_final, final.iters, 0),
+            qp_kkt=torch.maximum(carry.qp_kkt,
+                                 torch.where(use_final, final.kkt_res, 0.0)),
+        )
+        success = ~carry.infeasible
+    else:
+        # until convergence, at most opts.max_iter iterations: a masked batch
+        # loop (the JAX while_loop under vmap); a lane that has stopped keeps
+        # its carry until every lane stops
+        it = 1
+        while it < opts.max_iter:
+            running = ~carry.converged & ~carry.infeasible
+            if not bool(running.any()):
+                break
+            stepped, delta = step(carry, resolve_forward=True)
+            carry = tree_where(running, stepped, carry)
+            if opts.verbose:
+                _print_rows(carry, delta, running)
+            it += 1
+        success = carry.converged & ~carry.infeasible
+
+    sol = carry.sol
     new_persist = FastSLSPersist(
-        prev_primal=y, have_prev=torch.ones_like(persist.have_prev),
-        eta=eta_n, eta_f=eta_f_n, K=K_r,
-        Phi_x=Phi_x, Phi_u=Phi_u, cost_tube=ct,
-        qp_warm=update_warm(sol), qp_steady=qp_steady,
+        prev_primal=carry.prev_primal, have_prev=carry.have_prev,
+        eta=carry.eta, eta_f=carry.eta_f, K=carry.K,
+        Phi_x=carry.Phi_x, Phi_u=carry.Phi_u, cost_tube=carry.cost_tube,
+        qp_warm=update_warm(sol), qp_steady=next_steady(sol),
     )
     return FastSLSSolution(
-        X=sol.X, U=sol.U, y=y, lam=sol.lam, lam_f=sol.lam_f,
-        eta=eta_n, eta_f=eta_f_n, K=K_r, Phi_x=Phi_x, Phi_u=Phi_u,
-        beta=nbeta, beta_f=nbeta_f, backoff=nboff, backoff_f=nboff_f,
-        backoff_x=torch.cat([nboff[:, :, :nx], nboff_f[:, None, :nx]], dim=1),
-        backoff_u=nboff[:, :, nx : nx + nu],
-        cost_nominal=sol.cost, cost_tube=ct,
-        iteration_number=torch.where(conv, 0, 1).to(torch.int32),
-        success=sol.success, persist=new_persist,
-        qp_iters=sol.iters, qp_kkt=sol.kkt_res,
+        X=sol.X, U=sol.U, y=pack_primal(sol.X, sol.U), lam=sol.lam, lam_f=sol.lam_f,
+        eta=carry.eta, eta_f=carry.eta_f, K=carry.K, Phi_x=carry.Phi_x, Phi_u=carry.Phi_u,
+        beta=carry.beta, beta_f=carry.beta_f, backoff=carry.backoff, backoff_f=carry.backoff_f,
+        backoff_x=carry.backoff_x, backoff_u=carry.backoff_u,
+        cost_nominal=sol.cost, cost_tube=carry.cost_tube,
+        iteration_number=carry.iteration_number, success=success,
+        persist=new_persist, qp_iters=carry.qp_iters, qp_kkt=carry.qp_kkt,
     )

@@ -17,8 +17,10 @@ JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|fro
 
 def test_port_has_sources():
     assert len(SOURCES) >= 15
-    for name in ("fused_qp.cu", "fused_ipm.cu", "fused_response.cu", "newton.cuh"):
+    for name in ("fused_qp.cu", "fused_ipm.cu", "fused_response.cu", "fused_backward.cu",
+                 "newton.cuh"):
         assert (PORT / "csrc" / name).is_file(), name
+    assert PORT / "tools" / "fused_bwd_bench.py" in SOURCES
 
 
 def test_kernel_sources_are_the_ones_built():

@@ -138,6 +138,7 @@ def test_bench_workload_builds_and_steps_on_cpu():
 
     wl = bench.build_workload(device="cpu", dtype=torch.float64, B=2, N=4, n_warm=1, n_rep=1)
     assert wl.solver.opts.ipm.kkt == "fused" and wl.budget_mode == "adaptive(6,15)"
+    assert wl.sls_block == wl.solver._fast_sls_opts().sls_block == 0
     assert wl.w_seq.shape == (2, 2, wl.m.nw)
     carry, out = wl.mpc_step(wl.carry, wl.w_seq[0])
     assert out[6].all() and torch.isfinite(carry[0]).all() and torch.isfinite(carry[3]).all()
@@ -188,6 +189,11 @@ def test_bench_fused_kernel_configuration_on_cpu():
     carry, out = wl.mpc_step(wl.carry, wl.w_seq[0])
     assert out[6].all() and torch.isfinite(carry[0]).all() and torch.isfinite(carry[3]).all()
     assert carry[2].Phi_x.shape == (2, 5, 5, wl.m.nx, wl.m.nw)
+    # the hand-written backward's configuration (its plain twin here)
+    wl = bench.build_workload(**size, sls_block=-1, seed_from=base)
+    assert wl.solver._fast_sls_opts().sls_block == -1 and wl.sls_block == -1
+    carry, out = wl.mpc_step(wl.carry, wl.w_seq[0])
+    assert out[6].all() and torch.isfinite(carry[0]).all()
     with pytest.raises(ValueError, match="response must be one of"):
         bench.build_workload(device="cpu", B=2, N=4, response="blocked")
     with pytest.raises(ValueError, match="other initial states"):
