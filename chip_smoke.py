@@ -17,8 +17,7 @@ before the result lines):
      Newton kernels' cases with ni = 42, ni_f = 34; per-call times of every
      kernel and its plain version at (512, 15) float32, beside the least
      time the card could take (bytes over 3.35 TB/s, operations over the
-     CUDA-core peak); the K3 tool (tools/fused_bwd_bench.py) against the
-     column-blocked torch backward;
+     CUDA-core peak), and for K3 also the column-blocked torch backward;
   4. solve_qp on rocket QPs at B = 512: kkt="fused" against kkt="riccati"
      in float32 (identical iteration counts, X/U within 1e-4); kkt=
      "fused_iter" against "riccati" in float64 (identical iteration counts
@@ -30,8 +29,8 @@ before the result lines):
      float64: the card with sls_block = -1 (K3) against the CPU with
      sls_block = 0 (the folded torch backward), checked the same way;
   6. the bench twin (robust_nonlinear_mpc_torch.bench) at its full
-     configuration (the column-blocked SLS kernels, sls_block = 2): the main
-     path (K1, K2);
+     configuration (the folded SLS kernels, sls_block = 0): the main path
+     (K1, K2);
   7. the bench twin in the fused-kernel configuration (kkt="fused_iter",
      response="fused"): the second path (K6, K4). Both configurations start
      from one SQP seed and run twice, default, fused, fused, default, each
@@ -68,6 +67,7 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     _residuals,
     solve_qp,
 )
+from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_blocked
 from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
@@ -397,6 +397,9 @@ def time_kernels():
         "backward_K": (lambda: fused_backward.backward_K(*bargs),
                        lambda: fused_backward._plain_backward_K(*bargs)),
     }
+    # K3's plain version is the folded torch backward; the column-blocked
+    # one (sls_block > 0) is timed beside it
+    blocked = lambda: backward_solve_blocked(*bargs, block=2)[1]
     t = {}
     for k, (kern, plain) in pairs.items():
         p1 = bench.cuda_ms(plain, 5)
@@ -404,8 +407,9 @@ def time_kernels():
         w = bench.cuda_ms(kern, 30)
         p2 = bench.cuda_ms(plain, 5)
         t[k] = (min(k1, k2), min(p1, p2))
+        extra = f", torch blocked(2) {bench.cuda_ms(blocked, 5):.4f} ms" if k == "backward_K" else ""
         say(f"[3] {k} at B=512 N=15 f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
-            f"plain {t[k][1]:.4f} ms, bound " + "{:.4f} ms ({})".format(*kernel_bound(k)))
+            f"plain {t[k][1]:.4f} ms{extra}, bound " + "{:.4f} ms ({})".format(*kernel_bound(k)))
     return t
 
 
@@ -609,7 +613,6 @@ def main():
 
     main_err = check_kernels()
     times = time_kernels()
-    fused_bwd_bench.main()
     check_solve_qp()
     check_fused_iter()
     wls = bench_workloads()

@@ -18,9 +18,10 @@ one kernel; "riccati"), the response ("streaming", the default;
 "materialized": the Phi-materializing stages; "fused": the fused response
 kernel), the twins of the JAX bench's RNM_BENCH_KKT and
 RNM_BENCH_STREAMING, and the SLS kernels (`fast_sls.select_sls_kernels`):
-by default 2 on the card (the triangular column-blocked kernels, as the JAX
-bench sets on an accelerator) and 0 on the CPU (the folded ones); -1 runs
-the hand-written backward kernel. The fused-kernel configuration is
+0 by default (the folded torch backward and streaming response; the JAX
+bench's accelerator setting, 2, the column-blocked segments, was not
+faster per call on the H100 in alternating pairs: PERF.md), -1 the
+hand-written backward kernel. The fused-kernel configuration is
 kkt="fused_iter", response="fused".
 
 Prints ONE JSON line. Usage: python -m robust_nonlinear_mpc_torch.bench
@@ -130,14 +131,13 @@ def seed_nominal(m, solver, x0s):
 
 def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
                    n_warm=30, N=15, kkt="fused", response="streaming",
-                   sls_block: int | None = None,
+                   sls_block=0,
                    seed_from: BenchWorkload | None = None) -> BenchWorkload:
     """The bench's workload; the defaults are the benchmarked configuration
-    (the CPU tests build it at a tiny size). `sls_block` None is 2 on the
-    card and 0 on the CPU. `seed_from`: a workload of the same size whose
-    SQP seed is reused (the seed does not depend on `kkt`, `response` or
-    `sls_block`), so that several configurations start from the same lanes
-    without seeding again."""
+    (the CPU tests build it at a tiny size). `seed_from`: a workload of the
+    same size whose SQP seed is reused (the seed does not depend on `kkt`,
+    `response` or `sls_block`), so that several configurations start from
+    the same lanes without seeding again."""
     if response not in RESPONSES:
         raise ValueError(f"response must be one of {RESPONSES}, got {response!r}")
     from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
@@ -149,8 +149,6 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
     from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 
     m, solver = make_rocket_problem(N=N, device=device, dtype=dtype)
-    if sls_block is None:
-        sls_block = 2 if torch.device(device).type == "cuda" else 0
     qp_iters, cold_cap = 6, 15
     solver.opts = solver.opts._replace(
         verbose=False,

@@ -5,9 +5,9 @@ column-blocked SLS kernels against the JAX package (float64, CPU).
   in interpret mode (b_tile = 4: batch padding and several tiles) at the
   shapes of tests/test_pallas_sls.py, atol 1e-10.
 * `backward_solve_blocked` / `response_streaming_blocked` against the JAX
-  twins (jitted standalone) and against the port's folded forms for
-  block in {1, 2, 3} at N = 5 (3 leaves a ragged last segment), atol 1e-12:
-  the blocked forms skip only exact-zero columns.
+  twins (jitted standalone) and against the port's folded forms (their
+  single-segment case) for block in {1, 2, 3} at N = 5 (3 leaves a ragged
+  last segment), atol 1e-12: the segments skip only exact-zero columns.
 * `select_sls_kernels` for block 0, 2 and -1, and the wrapper's dispatch: a
   CPU tensor takes the plain twin and launches nothing.
 """

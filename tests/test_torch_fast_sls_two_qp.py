@@ -4,16 +4,22 @@ the JAX package (float64, CPU).
 * The double integrator of tests/test_fast_sls.py at N = 8, three lanes
   (one from an infeasible start), with `ipm_first`: the JAX
   `fast_sls_solve` (vmapped, sls_block = 0) in RTI mode (rti_steps = 2,
-  streaming response) and until-convergence mode (Phi-materializing
-  response, primal tolerance 1e-6, so that the lanes stop at different
-  iterations: one converges after 17, one reaches the cap of 30, the
-  infeasible one stops at once); the port at sls_block in {0, 3, -1}
-  against that one JAX run. Per lane iteration_number and success
-  identical; on the lanes whose entry QP is feasible qp_iters identical and
-  X, U and the backoffs within 1e-8. The infeasible lane's QPs fail in both
-  packages, but where an infeasible Mehrotra run stops (a non-finite step
-  or the complementarity floor) depends on rounding order: 17 iterations in
-  JAX, 7 in the port.
+  streaming response; also with `warm_start_qp`) and until-convergence mode
+  (Phi-materializing response, primal tolerance 1e-6, so that the lanes
+  stop at different iterations: one converges after 17, one reaches the
+  cap of 30, the infeasible one stops at once); the port at sls_block in
+  {0, 3, -1} against that one JAX run. Per lane iteration_number and
+  success identical; on the lanes whose entry QP is feasible qp_iters
+  identical and X, U and the backoffs within 1e-8.
+* The infeasible lane's entry QP fails in both packages, and where its
+  Mehrotra run stops is set by rounding: its duals grow by about 1e24 per
+  iteration until a step overflows, and a single step from one iterate
+  already differs between the packages by 0.5 % from iteration 6 on
+  (condition number past 1e16). The JAX run itself stops after 7 or after
+  17 iterations when x0 moves by one to three ulps. So the port's entry QP
+  at each of those x0 must stop at one of the points JAX reaches there,
+  and that set must hold more than one; in until-convergence mode, where
+  the lane runs only its entry QP, its qp_iters in both packages too.
 * The rocket closed loop with `make_rocket_problem`'s own options (two-QP
   RTI 1/1, riccati QP at tolerance 1e-9), N = 4, B = 2, 2 steps from one
   nominal: success and QP iterations identical, u0, X, U and the backoffs
@@ -34,7 +40,7 @@ from robust_nonlinear_mpc_torch.solvers import fast_sls as tf
 from robust_nonlinear_mpc_torch.solvers.sqp import SQPOptions as TSQPOptions
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve as t_sqp
 from robust_nonlinear_mpc_tpu.expe.main_rocket_robust_closed_loop import X0, make_rocket_problem
-from robust_nonlinear_mpc_tpu.ops.qp_ipm import IPMOptions, QPStatics
+from robust_nonlinear_mpc_tpu.ops.qp_ipm import IPMOptions, QPData, QPStatics, solve_qp
 from robust_nonlinear_mpc_tpu.ops.sls_kernels import SLSRegs
 from robust_nonlinear_mpc_tpu.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_tpu.solvers.fast_sls import (
@@ -66,15 +72,19 @@ def _double_integrator():
     )
 
 
-def _jax_run(rti_steps, streaming):
+def _jax_stat(p):
+    J = jnp.asarray
+    return QPStatics(Hx=J(p["Hx"]), Hu=J(p["Hu"]), HxN=J(p["HxN"]), Gx=J(p["Gx"]),
+                     Gu=J(p["Gu"]), Gf=J(p["Gf"]))
+
+
+def _jax_run(rti_steps, streaming, warm):
     p = _double_integrator()
     J = lambda a: jnp.asarray(a)
-    stat = QPStatics(Hx=J(p["Hx"]), Hu=J(p["Hu"]), HxN=J(p["HxN"]), Gx=J(p["Gx"]),
-                     Gu=J(p["Gu"]), Gf=J(p["Gf"]))
-    prob = SLSProblem(stat=stat, regs=SLSRegs(*map(J, p["regs"])), E=J(p["E"]))
+    prob = SLSProblem(stat=_jax_stat(p), regs=SLSRegs(*map(J, p["regs"])), E=J(p["E"]))
     persist = FastSLSPersist.init(N, 2, 1, NI, NI_F, 2, jnp.float64)
     opts = FastSLSOptions(rti_steps=rti_steps, max_iter=30, streaming_response=streaming,
-                          conv_tol=1e-3 if rti_steps else 1e-6,
+                          conv_tol=1e-3 if rti_steps else 1e-6, warm_start_qp=warm,
                           ipm=IPMOptions(**IPM), ipm_first=IPMOptions(**IPM_FIRST), sls_block=0)
     solve = jax.jit(jax.vmap(lambda x0: fast_sls_solve(
         prob, J(p["A"]), J(p["B"]), jnp.zeros((N, 2)), jnp.zeros((N + 1, 2)), jnp.zeros((N, 1)),
@@ -82,7 +92,7 @@ def _jax_run(rti_steps, streaming):
     return solve(J(X0S))
 
 
-def _port_run(rti_steps, streaming, sls_block, verbose=False):
+def _port_run(rti_steps, streaming, sls_block, verbose=False, warm=False):
     p = _double_integrator()
     Bsz = X0S.shape[0]
     T = lambda a: torch.as_tensor(np.ascontiguousarray(a))
@@ -93,7 +103,7 @@ def _port_run(rti_steps, streaming, sls_block, verbose=False):
     persist = tf.FastSLSPersist.init(N, 2, 1, NI, NI_F, 2, batch=Bsz, dtype=torch.float64,
                                      device="cpu", store_phi=not streaming)
     opts = tf.FastSLSOptions(rti_steps=rti_steps, max_iter=30, streaming_response=streaming,
-                             conv_tol=1e-3 if rti_steps else 1e-6,
+                             conv_tol=1e-3 if rti_steps else 1e-6, warm_start_qp=warm,
                              ipm=tq.IPMOptions(**IPM), ipm_first=tq.IPMOptions(**IPM_FIRST),
                              sls_block=sls_block, verbose=verbose)
     z = lambda *s: torch.zeros((Bsz,) + s, dtype=torch.float64)
@@ -101,21 +111,62 @@ def _port_run(rti_steps, streaming, sls_block, verbose=False):
                              lanes(p["g"]), lanes(p["gf"]), T(X0S), persist, opts)
 
 
-@pytest.fixture(scope="module", params=[(2, True), (0, False)], ids=["rti2", "until_conv"])
+@pytest.fixture(scope="module", params=[(2, True, False), (2, True, True), (0, False, False)],
+                ids=["rti2", "rti2_warm", "until_conv"])
 def jax_run(request):
-    rti_steps, streaming = request.param
-    return rti_steps, streaming, _jax_run(rti_steps, streaming)
+    rti_steps, streaming, warm = request.param
+    return rti_steps, streaming, warm, _jax_run(rti_steps, streaming, warm)
+
+
+def _near_infeasible_x0():
+    """The infeasible lane's x0 with x0[0] moved by -3 .. 3 ulps."""
+    x0 = X0S[2]
+    return np.array([[x0[0] + u * np.spacing(x0[0]), x0[1]] for u in range(-3, 4)])
+
+
+@pytest.fixture(scope="module")
+def infeasible_stops():
+    """Iteration counts at which the JAX entry QP of the infeasible lane
+    stops, for x0[0] within three ulps of its value."""
+    p = _double_integrator()
+    J = jnp.asarray
+    solve = jax.jit(jax.vmap(lambda xi: solve_qp(_jax_stat(p), QPData(
+        A=J(p["A"]), B=J(p["B"]), c=jnp.zeros((N, 2)), qx=jnp.zeros((N + 1, 2)),
+        qu=jnp.zeros((N, 1)), h=J(p["g"]), hf=J(p["gf"]), xinit=xi), IPMOptions(**IPM_FIRST))))
+    out = solve(J(_near_infeasible_x0()))
+    assert not np.asarray(out.success).any()
+    return set(np.asarray(out.iters).tolist())
+
+
+def test_infeasible_entry_qp_stop_is_set_by_rounding(infeasible_stops):
+    p = _double_integrator()
+    x0s = torch.as_tensor(_near_infeasible_x0())
+    Bsz = x0s.shape[0]
+    lanes = lambda a: torch.as_tensor(np.ascontiguousarray(np.broadcast_to(a, (Bsz,) + a.shape)))
+    z = lambda *s: torch.zeros((Bsz,) + s, dtype=torch.float64)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    stat = tq.QPStatics(Hx=T(p["Hx"]), Hu=T(p["Hu"]), HxN=T(p["HxN"]), Gx=T(p["Gx"]),
+                        Gu=T(p["Gu"]), Gf=T(p["Gf"]))
+    data = tq.QPData(A=lanes(p["A"]), B=lanes(p["B"]), c=z(N, 2), qx=z(N + 1, 2), qu=z(N, 1),
+                     h=lanes(p["g"]), hf=lanes(p["gf"]), xinit=x0s)
+    got = tq.solve_qp(stat, data, tq.IPMOptions(**IPM_FIRST))
+    assert len(infeasible_stops) > 1
+    assert not got.success.any()
+    assert set(got.iters.tolist()) <= infeasible_stops
 
 
 @pytest.mark.parametrize("sls_block", [0, 3, -1])
-def test_two_qp_fast_sls_matches_jax(jax_run, sls_block):
-    rti_steps, streaming, ref = jax_run
-    got = _port_run(rti_steps, streaming, sls_block)
+def test_two_qp_fast_sls_matches_jax(jax_run, infeasible_stops, sls_block):
+    rti_steps, streaming, warm, ref = jax_run
+    got = _port_run(rti_steps, streaming, sls_block, warm=warm)
     for f in ("iteration_number", "success"):
         assert getattr(got, f).tolist() == np.asarray(getattr(ref, f)).tolist(), f
     assert np.asarray(ref.success).tolist() == [True, bool(rti_steps), False]
     ok = np.array([True, True, False])
     assert got.qp_iters.numpy()[ok].tolist() == np.asarray(ref.qp_iters)[ok].tolist()
+    if not rti_steps:
+        assert int(got.qp_iters[2]) in infeasible_stops
+        assert int(np.asarray(ref.qp_iters)[2]) in infeasible_stops
     for f in ("X", "U", "backoff", "backoff_f", "backoff_x", "backoff_u", "cost_tube"):
         err = np.abs(getattr(got, f).numpy()[ok] - np.asarray(getattr(ref, f))[ok]).max()
         assert err <= TOL, f"{f}: {err:.3e}"
