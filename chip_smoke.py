@@ -7,12 +7,15 @@ before the result lines):
   1. the device and its nvidia-smi name and power limit;
   2. build every kernel (csrc/fused_qp.cu, fused_ipm.cu, fused_response.cu,
      fused_backward.cu) with nvcc for sm_90a;
-  3. each kernel against its plain torch version on the card, relative to
-     each output's max |value|: the Newton kernels K1/K2 float64 to 1e-10
-     and float32 to 1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with
-     nx = 17, nu = 4, and nu in {1, 2} at B = 8; the whole-iteration kernel
-     K6 at the same (B, N) with ni = 42, ni_f = 34 (a lane marked done and a
-     lane whose step is not finite included); the response kernel K4 at
+  3. each kernel's registers per thread, shared bytes per block, resident
+     blocks per SM and waves at B = 512 (from the CUDA runtime); each kernel
+     against its plain torch version on the card, relative to each output's
+     max |value|: the Newton kernels K1/K2 float64 to 1e-10 and float32 to
+     1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with nx = 17, nu = 4,
+     nu in {1, 2} at B = 8, a batch of 529 (the last wave part-filled) and
+     nx = 7 (the general width path); the whole-iteration kernel K6 at the
+     same (B, N) with ni = 42, ni_f = 34 (a lane marked done and a lane
+     whose step is not finite included) and at B = 529 and nx = 7; the response kernel K4 at
      B in {512, 37}, float32 to 1e-4; the SLS backward kernel K3 at the
      Newton kernels' cases with ni = 42, ni_f = 34; per-call times of every
      kernel and its plain version at (512, 15) float32, beside the least
@@ -159,6 +162,11 @@ def compare_kernels(Bsz, N, nu, dtype, nx=17):
 
 
 KERNEL_CASES = [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)]
+# the Newton kernels' and K6's edges: a batch that does not fill the last wave
+# of one-block-per-lane kernels (529 > 4 x 132), and the general width path
+# (nx = 7 is not an instantiated width), as (B, N, nx, nu)
+EDGE_CASES = [(529, 15, NX, NU), (8, 15, 7, 4), (8, 15, 7, 2)]
+IPM_CASES = [(512, 15, NX, NU), (37, 15, NX, NU), (8, 60, NX, NU)] + EDGE_CASES
 
 
 KERNEL_SYMBOLS = {
@@ -179,16 +187,24 @@ def kernel_ms(fn, kernel, n):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and KERNEL_SYMBOLS[kernel] in ev.key]
-    count = sum(ev.count for ev in rows)
-    if count != n:
+    # the profiler now and then drops a kernel record: a window in which it
+    # did not see every launch is measured again, and after three such
+    # windows the time is the mean over the launches it did see
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and KERNEL_SYMBOLS[kernel] in ev.key]
+        count = sum(ev.count for ev in rows)
+        if count == n:
+            break
+    if count == 0 or count > n:
         fail(f"the profiler saw {count} launches of {kernel}, expected {n}")
-    return sum(ev.self_device_time_total for ev in rows) / 1e3 / n
+    if count != n:
+        say(f"[3] the profiler saw {count} of {n} launches of {kernel}; the mean is over those")
+    return sum(ev.self_device_time_total for ev in rows) / 1e3 / count
 
 
 def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
@@ -236,9 +252,9 @@ IPM_OUTPUTS = ("X", "U", "lam", "s", "lam_f", "s_f", "nu_dyn", "req", "rineq", "
                "rx_pad", "rxN", "ru", "res", "bad")
 
 
-def compare_ipm(Bsz, N, dtype):
+def compare_ipm(Bsz, N, dtype, nx=NX, nu=NU):
     """K6 against its plain version on the same card inputs."""
-    args, kw = ipm_inputs(Bsz, N, dtype, "cuda", seed=Bsz + N)
+    args, kw = ipm_inputs(Bsz, N, dtype, "cuda", seed=Bsz + N, nx=nx, nu=nu)
     got = fused_qp.ipm_iteration(*args, **kw)
     ref = fused_qp._plain_ipm_iter(*args, **kw)
     torch.cuda.synchronize()
@@ -300,8 +316,12 @@ def check_kernels():
     each kernel's largest absolute error at the main path's shape."""
     cases = [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_kernels(B, N, nu, dtype))
              for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
-    cases += [(dtype, (B, N), lambda B=B, N=N, dtype=dtype: compare_ipm(B, N, dtype))
-              for dtype in (torch.float64, torch.float32) for B, N in ((512, 15), (37, 15), (8, 60))]
+    cases += [(dtype, (B, N), lambda B=B, N=N, nx=nx, nu=nu, dtype=dtype:
+               compare_kernels(B, N, nu, dtype, nx=nx))
+              for dtype in (torch.float64, torch.float32) for B, N, nx, nu in EDGE_CASES]
+    cases += [(dtype, (B, N), lambda B=B, N=N, nx=nx, nu=nu, dtype=dtype:
+               compare_ipm(B, N, dtype, nx=nx, nu=nu))
+              for dtype in (torch.float64, torch.float32) for B, N, nx, nu in IPM_CASES]
     cases += [(torch.float32, (B, 15), lambda B=B: compare_response(B)) for B in (512, 37)]
     cases += [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_backward(B, N, nu, dtype))
               for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
@@ -316,6 +336,24 @@ def check_kernels():
     for (kname, dtype), r in worst.items():
         say(f"[3] {kname} {dtype}: worst rel err {r:.3e} (tol {TOL[dtype]:g})")
     return main_err
+
+
+def report_occupancy(Bsz=512, N=15):
+    """Phase 3: what each kernel costs the SM at the main path's widths, from
+    the CUDA runtime: registers per thread, shared bytes per block (static +
+    dynamic), spill bytes, resident blocks per SM and the waves of a grid at
+    B = 512. Returns {(kernel, dtype name): info}."""
+    rows = {}
+    for name, suffixes in cuda_lib.INFO_KERNELS.items():
+        for sfx in suffixes:
+            dtype = torch.float32 if sfx == "f32" else torch.float64
+            info = cuda_lib.kernel_info(name, dtype, Bsz, N, NX, NU, NI, NI_F)
+            rows[(name, sfx)] = info
+            say(f"[3] occupancy {name} {sfx} at B={Bsz} N={N}: {info['registers']} registers, "
+                f"{info['static_smem'] + info['dynamic_smem']} shared bytes "
+                f"({info['dynamic_smem']} dynamic), {info['local_bytes']} local (stack) bytes, "
+                f"{info['blocks_per_sm']} blocks/SM on {info['sms']} SMs, {info['waves']} wave(s)")
+    return rows
 
 
 def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dtype=torch.float32):
@@ -353,11 +391,16 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
         resid = 2 * N * nx + Nni + ni_f + nx + N * nu
         data = N * (nxx + nxu) + N * nx + (N + 1) * nx + N * nu + Nni + ni_f + 1
         shared = N * (ni * (nx + nu) + nxx + nu * nu) + ni_f * nx + nxx
-        words = Bsz * (data + curv + 2 * iterate + 2 * resid + 1) + shared
+        weights = N * ni + ni_f                                  # W, W_f
+        words = Bsz * (data + weights + 2 * iterate + 2 * resid + 1) + shared
         rhs = 2 * Nni * (nx + nu) + 2 * ni_f * nx
         resid_flops = N * (4 * nxx + 2 * nxu + 2 * ni * nx) + Nni * 2 * (nx + nu) \
             + 2 * ni_f * nx + 2 * nxx + 2 * ni_f * nx + N * (2 * nu * nu + 2 * ni * nu + 2 * nxu)
-        flops = Bsz * (N * (fact + ff + 2 * fwd) + 4 * rhs + resid_flops + 40 * (Nni + ni_f))
+        # the curvature Gx' diag(W) Gx + Hx, Gx' diag(W) Gu, Gu' diag(W) Gu + Hu
+        # per stage and HxN + Gf' diag(W_f) Gf: 3 operations a term
+        curv_flops = 3 * (N * ni * (nxx + nxu + nu * nu) + ni_f * nxx)
+        flops = Bsz * (N * (fact + ff + 2 * fwd) + 4 * rhs + resid_flops + curv_flops
+                       + 40 * (Nni + ni_f))
     else:   # fused_response, always float32
         size = 4
         cols = N * (N + 1) // 2
@@ -611,6 +654,7 @@ def main():
     say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
         f"in {time.perf_counter() - t0:.1f} s")
 
+    report_occupancy()
     main_err = check_kernels()
     times = time_kernels()
     check_solve_qp()

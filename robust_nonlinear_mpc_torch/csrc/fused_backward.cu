@@ -41,6 +41,7 @@
 // blocks are what fill the card.
 
 #include "newton.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -225,6 +226,16 @@ int rnm_backward_K_f32(RNM_BK_ARGS(float)) {
 int rnm_backward_K_f64(RNM_BK_ARGS(double)) {
   return launch_backward_K<double>(A, B, Gx, Gu, Gf, eta, eta_f, Qr, Rr, Qrf, K, Bsz, N,
                                    nx, nu, ni, ni_f, (cudaStream_t)stream);
+}
+
+// dims = (N, nx, nu, ni, ni_f, nw)
+int rnm_backward_K_info_f32(const int* d, int* out) {
+  return rnm::kernel_info(backward_K_kernel<float>, BWD_THREADS,
+                          smem_elems(d[1], d[2], d[3], d[4]) * sizeof(float), out);
+}
+int rnm_backward_K_info_f64(const int* d, int* out) {
+  return rnm::kernel_info(backward_K_kernel<double>, BWD_THREADS,
+                          smem_elems(d[1], d[2], d[3], d[4]) * sizeof(double), out);
 }
 
 }  // extern "C"

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -212,6 +214,12 @@ int rnm_fused_response_f32(const float* A, const float* B, const float* E, const
       A, B, E, K, Gx, Gu, Gf, Qr, Rr, Qrf, Phi_x, Phi_u, beta, beta_f, backoff, backoff_f,
       tube, N, nx, nu, nw, ni, ni_f, (float)eps);
   return (int)cudaGetLastError();
+}
+
+// dims = (N, nx, nu, ni, ni_f, nw)
+int rnm_fused_response_info_f32(const int* d, int* out) {
+  return rnm::kernel_info(response_kernel, THREADS,
+                          smem_floats(d[0], d[1], d[2], d[5], d[3], d[4]) * sizeof(float), out);
 }
 
 }  // extern "C"

@@ -25,6 +25,10 @@ SOURCES = [CSRC / "fused_qp.cu", CSRC / "fused_ipm.cu", CSRC / "fused_response.c
 BUILD_DIR = _PKG_DIR.parent / "build" / "robust_nonlinear_mpc_torch"
 
 _LIB = None
+# kernels with an occupancy query, and the types each is built for
+INFO_KERNELS = {"factor_predictor": ("f32", "f64"), "resolve": ("f32", "f64"),
+                "ipm_iteration": ("f32", "f64"), "backward_K": ("f32", "f64"),
+                "fused_response": ("f32",)}
 
 
 def build_extension(verbose: bool = False):
@@ -63,10 +67,36 @@ def build_extension(verbose: bool = False):
             fn.restype = i32
     lib.rnm_fused_response_f32.argtypes = [ptr] * 17 + [i32] * 7 + [f64, ptr]
     lib.rnm_fused_response_f32.restype = i32
+    for name, suffixes in INFO_KERNELS.items():
+        for sfx in suffixes:
+            fn = getattr(lib, f"rnm_{name}_info_{sfx}")
+            fn.argtypes = [ptr, ptr]
+            fn.restype = i32
     lib.rnm_error_string.argtypes = [i32]
     lib.rnm_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
+
+
+def kernel_info(name, dtype, Bsz, N, nx, nu, ni, ni_f, nw=None):
+    """What one launch of kernel `name` at these widths costs the SM, from
+    the CUDA runtime (`cudaFuncGetAttributes`, `cudaOccupancyMaxActive
+    BlocksPerMultiprocessor`): registers per thread, static and dynamic
+    shared bytes per block, local (spill) bytes per thread, resident blocks
+    per SM, and the waves a grid of one block per lane (`Bsz`) takes on the
+    current card."""
+    lib = build_extension()
+    dims = (ctypes.c_int * 6)(N, nx, nu, ni, ni_f, nx if nw is None else nw)
+    out = (ctypes.c_int * 5)()
+    err = getattr(lib, f"rnm_{name}_info_{suffix(dtype)}")(dims, out)
+    if err != 0:
+        raise RuntimeError(f"{name} info failed: {lib.rnm_error_string(err).decode()}")
+    regs, static, dynamic, local, blocks = list(out)
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    grid = Bsz * (N + 1) if name == "backward_K" else Bsz
+    waves = -(-grid // (sms * blocks)) if blocks > 0 else None
+    return {"registers": regs, "static_smem": static, "dynamic_smem": dynamic,
+            "local_bytes": local, "blocks_per_sm": blocks, "sms": sms, "waves": waves}
 
 
 def suffix(dtype):

@@ -15,8 +15,9 @@ makes two Newton solves against one Riccati factorization:
 
 With `IPMOptions(kkt="fused_iter")` the whole iteration is one kernel:
 
-  * `ipm_iteration` replaces the Pallas `_ipm_iter_kernel`: rhs assembly,
-    both Newton solves (the stage loops of the two kernels above), slack and
+  * `ipm_iteration` replaces the Pallas `_ipm_iter_kernel`: the curvature
+    from the weights W, W_f (which the Pallas wrapper computes outside its
+    kernel), rhs assembly, both Newton solves (the stage loops of the two kernels above), slack and
     dual recovery, the fraction-to-boundary steps, sigma, the update with
     the done-lane freeze, fresh residuals, the KKT scalar and the revert of
     non-finite lanes. Contract of the JAX `_ipm_iter_batched`.
@@ -41,7 +42,6 @@ from robust_nonlinear_mpc_torch.ops.cuda_lib import suffix as _suffix
 from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     QPData,
     QPStatics,
-    _curvature,
     _forward_sweep,
     _fused_newton,
     _mehrotra_iteration,
@@ -280,21 +280,19 @@ def ipm_iteration(A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN,
         raise ValueError(f"ipm_iteration: unsupported device {A.device}")
     Bsz, N, nx, nu = _dims(A, B)
     ni, ni_f = Gx.shape[1], Gf.shape[0]
-    Cxx, Cuu, Cxu, PN = _curvature(QPStatics(Hx, Hu, HxN, Gx, Gu, Gf), W, W_f)
     shapes = {
         "A": (Bsz, N, nx, nx), "B": (Bsz, N, nx, nu), "c": (Bsz, N, nx),
         "qx": (Bsz, N + 1, nx), "qu": (Bsz, N, nu), "h": (Bsz, N, ni), "hf": (Bsz, ni_f),
         "Gx": (N, ni, nx), "Gu": (N, ni, nu), "Gf": (ni_f, nx), "Hx": (N, nx, nx),
-        "Hu": (N, nu, nu), "HxN": (nx, nx), "Cxx": (Bsz, N, nx, nx),
-        "Cuu": (Bsz, N, nu, nu), "Cxu": (Bsz, N, nx, nu), "PN": (Bsz, nx, nx),
+        "Hu": (N, nu, nu), "HxN": (nx, nx), "W": (Bsz, N, ni), "W_f": (Bsz, ni_f),
         "X": (Bsz, N + 1, nx), "U": (Bsz, N, nu), "lam": (Bsz, N, ni), "s": (Bsz, N, ni),
         "lam_f": (Bsz, ni_f), "s_f": (Bsz, ni_f), "nu_dyn": (Bsz, N, nx),
         "req": (Bsz, N, nx), "rineq": (Bsz, N, ni), "rineq_f": (Bsz, ni_f),
         "rx_pad": (Bsz, N, nx), "rxN": (Bsz, nx), "ru": (Bsz, N, nu), "scale_p": (Bsz,),
     }
-    values = dict(zip(shapes, (A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN, Cxx, Cuu,
-                               Cxu, PN, X, U, lam, s, lam_f, s_f, nu_dyn, req, rineq,
-                               rineq_f, rx_pad, rxN, ru, scale_p)))
+    values = dict(zip(shapes, (A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN, W, W_f,
+                               X, U, lam, s, lam_f, s_f, nu_dyn, req, rineq, rineq_f,
+                               rx_pad, rxN, ru, scale_p)))
     ins = [_check(k, values[k], shape, A) for k, shape in shapes.items()]
     ins.append(_check("done", done, (Bsz,), A, dtype=torch.bool))
     new = lambda *s_: torch.empty((Bsz,) + s_, dtype=A.dtype, device=A.device)
@@ -302,12 +300,13 @@ def ipm_iteration(A, B, c, qx, qu, h, hf, Gx, Gu, Gf, Hx, Hu, HxN,
             new(N, nx), new(N, nx), new(N, ni), new(ni_f), new(N, nx), new(nx), new(N, nu),
             new(), torch.empty((Bsz,), dtype=torch.bool, device=A.device)]
     # per-lane workspace, one allocation: rbx, rbxN, rbu, dX, dU, dnu, K,
-    # FxuT, Fuu_tri, Fiv_tri, Pseq, kff, pn, ds, dlam, ds_f, dlam_f, t, t_f,
-    # rcomp, rcomp_f
+    # FxuT, Fuu_tri, Fiv_tri, Pseq, kff, pn (used by the kernel only where
+    # they do not fit in shared memory), ds, dlam, ds_f, dlam_f, t, t_f,
+    # rcomp, rcomp_f, and the curvature the kernel builds (Cxx, Cxu, Cuu)
     nuu = nu * (nu + 1) // 2
     sizes = [N * nx, nx, N * nu, (N + 1) * nx, N * nu, N * nx, N * nu * nx, N * nu * nx,
              N * nuu, N * nuu, N * nx * nx, N * nu, N * nx, N * ni, N * ni, ni_f, ni_f,
-             N * ni, ni_f, N * ni, ni_f]
+             N * ni, ni_f, N * ni, ni_f, N * (nx * nx + nx * nu + nu * nu)]
     work = torch.split(torch.empty(Bsz * sum(sizes), dtype=A.dtype, device=A.device),
                        [Bsz * n for n in sizes])
     if Bsz > 0:

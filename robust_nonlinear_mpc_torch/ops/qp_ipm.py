@@ -94,9 +94,9 @@ class IPMOptions(NamedTuple):
     #                  the JAX package's "pallas";
     #   "fused_iter" - the whole Mehrotra iteration as one hand-written CUDA
     #                  kernel (ops/fused_qp.ipm_iteration, csrc/fused_ipm.cu):
-    #                  the port's name for "pallas_iter". W = lam / s, the
-    #                  curvature Gram products and the done bookkeeping stay
-    #                  outside the kernel.
+    #                  the port's name for "pallas_iter". The kernel builds the
+    #                  curvature Gram products from W = lam / s; W and the done
+    #                  bookkeeping stay outside it.
     # On CPU tensors the kernels' plain torch twins run. The JAX option
     # "condensed" is not ported.
     kkt: str = "riccati"

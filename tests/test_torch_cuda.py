@@ -2,7 +2,9 @@
 versions on the same card inputs (float64 to 1e-10, float32 to 1e-4,
 relative to each output's largest entry): the fused Newton kernels and the
 whole-iteration kernel at the main path's shape, a ragged batch and a long
-horizon (the Newton kernels also at narrow inputs), the response kernel
+horizon (the Newton kernels also at narrow inputs), at a batch that leaves
+the last wave part-filled and at a width off the instantiated one (the
+general path), the response kernel
 (float32 only) at the main path's shape and a ragged batch, the SLS
 backward kernel at the Newton kernels' cases.
 
@@ -40,6 +42,36 @@ def test_kernels_match_plain(smoke, Bsz, N, nu, dtype):
 def test_ipm_iteration_matches_plain(smoke, Bsz, N, dtype):
     for (kernel, output), (rel, _) in smoke.compare_ipm(Bsz, N, dtype).items():
         assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
+
+
+# (B, N, nx, nu): 529 lanes leave the last wave of one block per lane
+# part-filled; nx = 7 takes the general (runtime-width) path
+EDGES = [(529, 15, 17, 4), (8, 15, 7, 4), (8, 15, 7, 2), (8, 60, 7, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("Bsz,N,nx,nu", EDGES)
+def test_kernels_match_plain_at_edges(smoke, Bsz, N, nx, nu, dtype):
+    for (kernel, output), (rel, _) in smoke.compare_kernels(Bsz, N, nu, dtype, nx=nx).items():
+        assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("Bsz,N,nx,nu", EDGES)
+def test_ipm_iteration_matches_plain_at_edges(smoke, Bsz, N, nx, nu, dtype):
+    # compare_ipm marks lane 1 done and makes lane 2's step non-finite, and
+    # fails unless exactly lane 2 is reverted
+    for (kernel, output), (rel, _) in smoke.compare_ipm(Bsz, N, dtype, nx=nx, nu=nu).items():
+        assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
+
+
+def test_one_wave_at_the_main_shape(smoke):
+    # the redesign's occupancy budget: K1 and K6 keep B = 512 float32 in one wave
+    from robust_nonlinear_mpc_torch.ops import cuda_lib
+
+    for name in ("factor_predictor", "ipm_iteration"):
+        info = cuda_lib.kernel_info(name, torch.float32, 512, 15, 17, 4, 42, 34)
+        assert info["waves"] == 1, (name, info)
 
 
 @pytest.mark.parametrize("Bsz", [512, 37])
