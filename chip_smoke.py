@@ -13,14 +13,17 @@ before the result lines):
      max |value|: the Newton kernels K1/K2 float64 to 1e-10 and float32 to
      1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with nx = 17, nu = 4,
      nu in {1, 2} at B = 8, a batch of 529 (the last wave part-filled) and
-     nx = 7 (the general width path); the whole-iteration kernel K6 at the
-     same (B, N) with ni = 42, ni_f = 34 (a lane marked done and a lane
-     whose step is not finite included) and at B = 529 and nx = 7; the response kernel K4 at
-     B in {512, 37}, float32 to 1e-4; the SLS backward kernel K3 at the
-     Newton kernels' cases with ni = 42, ni_f = 34; per-call times of every
-     kernel and its plain version at (512, 15) float32, beside the least
-     time the card could take (bytes over 3.35 TB/s, operations over the
-     CUDA-core peak), and for K3 also the column-blocked torch backward;
+     the other widths: the pendulum's and the quadrotor's (4, 1), (13, 4)
+     and the general path at (7, 3), (32, 2); the whole-iteration kernel K6 at the same (B, N) with ni = 42,
+     ni_f = 34 (a lane marked done and a lane whose step is not finite
+     included) and at the same batch of 529 and widths; the response
+     kernel K4 at B in {512, 37}, float32 to 1e-4; the SLS backward kernel
+     K3 at the Newton kernels' cases with ni = 42, ni_f = 34; per-call times
+     of every kernel and its plain version at (512, 15) float32, beside the
+     least time the card could take (bytes over 3.35 TB/s, operations over
+     the CUDA-core peak), and for K3 also the column-blocked torch backward
+     (a kernel's time is its device time from torch.profiler, taken from a
+     window in which every launch was recorded);
   4. solve_qp on rocket QPs at B = 512: kkt="fused" against kkt="riccati"
      in float32 (identical iteration counts, X/U within 1e-4); kkt=
      "fused_iter" against "riccati" in float64 (identical iteration counts
@@ -62,19 +65,21 @@ from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
     make_rocket_problem,
 )
 from robust_nonlinear_mpc_torch.ops import cuda_lib, fused_backward, fused_qp, fused_response
-from robust_nonlinear_mpc_torch.ops.qp_ipm import (
-    IPMOptions,
-    QPData,
-    QPStatics,
-    _curvature,
-    _residuals,
-    solve_qp,
-)
+from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions, QPData, solve_qp
 from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_blocked
 from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
 from robust_nonlinear_mpc_torch.tools import fused_bwd_bench
+from robust_nonlinear_mpc_torch.tools.kernel_times import (
+    NI,
+    NI_F,
+    NU,
+    NX,
+    device_ms,
+    ipm_inputs,
+    newton_inputs,
+)
 from robust_nonlinear_mpc_torch.utils.batch import tree_map
 
 OUT_DIR = Path("chiprun_out")
@@ -97,8 +102,6 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-# the rocket's widths
-NX, NU, NI, NI_F = 17, 4, 42, 34
 
 
 _START = time.perf_counter()
@@ -111,30 +114,6 @@ def say(msg):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def newton_inputs(Bsz, N, nx, nu, dtype, device, seed):
-    """Random well-posed Newton-solve inputs (curvature from random
-    constraint geometry and IPM weights), made with numpy from a seed."""
-    rng = np.random.default_rng(seed)
-    ni, ni_f = 2 * (nx + nu), 2 * nx
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    stat = QPStatics(
-        Hx=t(2 * np.eye(nx)), Hu=t(2 * np.eye(nu)), HxN=t(6 * np.eye(nx)),
-        Gx=t(rng.standard_normal((ni, nx))), Gu=t(rng.standard_normal((ni, nu))),
-        Gf=t(rng.standard_normal((ni_f, nx))),
-    ).per_stage(N)
-    W = t(np.abs(rng.standard_normal((Bsz, N, ni))) + 0.1)
-    Wf = t(np.abs(rng.standard_normal((Bsz, ni_f))) + 0.1)
-    Cxx, Cuu, Cxu, PN = _curvature(stat, W, Wf)
-    A = t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx)))
-    B = t(0.2 * rng.standard_normal((Bsz, N, nx, nu)))
-    rbx = rng.standard_normal((Bsz, N, nx))
-    rbx[:, 0] = 0.0
-    rhs = [t(rbx), t(rng.standard_normal((Bsz, nx))), t(rng.standard_normal((Bsz, N, nu))),
-           t(rng.standard_normal((Bsz, N, nx)))]
-    rhs2 = [t(rng.standard_normal(r.shape)) for r in rhs]
-    return (A, B, Cxx, Cuu, Cxu, PN), rhs, rhs2
 
 
 def rel_err(a, b):
@@ -162,10 +141,12 @@ def compare_kernels(Bsz, N, nu, dtype, nx=17):
 
 
 KERNEL_CASES = [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)]
-# the Newton kernels' and K6's edges: a batch that does not fill the last wave
-# of one-block-per-lane kernels (529 > 4 x 132), and the general width path
-# (nx = 7 is not an instantiated width), as (B, N, nx, nu)
-EDGE_CASES = [(529, 15, NX, NU), (8, 15, 7, 4), (8, 15, 7, 2)]
+# the Newton kernels' and K6's edges, as (B, N, nx, nu): a batch that does not
+# fill the last wave of one-block-per-lane kernels (529 > 4 x 132), the other
+# models' instantiated widths, the pendulum's (4, 1) and the quadrotor's
+# (13, 4), and the general (runtime-width) path at nx = 7 and at the largest
+# width, 32
+EDGE_CASES = [(529, 15, NX, NU), (8, 15, 4, 1), (8, 15, 7, 3), (8, 15, 13, 4), (8, 15, 32, 2)]
 IPM_CASES = [(512, 15, NX, NU), (37, 15, NX, NU), (8, 60, NX, NU)] + EDGE_CASES
 
 
@@ -176,76 +157,25 @@ KERNEL_SYMBOLS = {
     "fused_response": "response_kernel",
     "backward_K": "backward_K_kernel",
 }
+WRAPPERS = {
+    "factor_predictor": fused_qp.factor_predictor,
+    "resolve": fused_qp.resolve,
+    "ipm_iteration": fused_qp.ipm_iteration,
+    "fused_response": fused_response.fused_response,
+    "backward_K": fused_backward.backward_K,
+}
 
 
 def kernel_ms(fn, kernel, n):
     """Device time of one launch of the kernel, from torch.profiler over n
-    calls of its wrapper (what the wrapper runs around it, such as K6's
-    curvature products, is not counted)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    # the profiler now and then drops a kernel record: a window in which it
-    # did not see every launch is measured again, and after three such
-    # windows the time is the mean over the launches it did see
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = [ev for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and KERNEL_SYMBOLS[kernel] in ev.key]
-        count = sum(ev.count for ev in rows)
-        if count == n:
-            break
-    if count == 0 or count > n:
-        fail(f"the profiler saw {count} launches of {kernel}, expected {n}")
-    if count != n:
-        say(f"[3] the profiler saw {count} of {n} launches of {kernel}; the mean is over those")
-    return sum(ev.self_device_time_total for ev in rows) / 1e3 / count
-
-
-def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
-    """Arguments of one whole IPM iteration (`fused_qp.ipm_iteration`): a
-    random problem, an interior iterate and its residuals, made with numpy.
-    Lane 1 is marked done; lane 2 has an infinite dynamics offset, so its
-    step is reverted."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    stat = QPStatics(
-        Hx=t(2 * np.eye(nx)), Hu=t(2 * np.eye(nu)), HxN=t(6 * np.eye(nx)),
-        Gx=t(rng.standard_normal((ni, nx))), Gu=t(rng.standard_normal((ni, nu))),
-        Gf=t(rng.standard_normal((ni_f, nx))),
-    ).per_stage(N)
-    c = 0.01 * rng.standard_normal((Bsz, N, nx))
-    h = 4.0 + np.abs(rng.standard_normal((Bsz, N, ni)))
-    hf = 4.0 + np.abs(rng.standard_normal((Bsz, ni_f)))
-    scale_p = 1.0 + np.abs(np.concatenate([c.reshape(Bsz, -1), h.reshape(Bsz, -1), hf], 1)).max(1)
-    data = QPData(
-        A=t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))),
-        B=t(0.2 * rng.standard_normal((Bsz, N, nx, nu))), c=t(c),
-        qx=t(0.1 * rng.standard_normal((Bsz, N + 1, nx))),
-        qu=t(0.1 * rng.standard_normal((Bsz, N, nu))), h=t(h), hf=t(hf), xinit=None,
-    )
-    it = [t(0.3 * rng.standard_normal((Bsz, N + 1, nx))), t(0.3 * rng.standard_normal((Bsz, N, nu))),
-          t(0.5 + np.abs(rng.standard_normal((Bsz, N, ni)))),
-          t(0.5 + np.abs(rng.standard_normal((Bsz, N, ni)))),
-          t(0.5 + np.abs(rng.standard_normal((Bsz, ni_f)))),
-          t(0.5 + np.abs(rng.standard_normal((Bsz, ni_f)))),
-          t(0.1 * rng.standard_normal((Bsz, N, nx)))]
-    req, rineq, rineq_f, rx, rxN, ru = _residuals(stat, data, *it)
-    rx_pad = torch.cat([torch.zeros_like(rx[:, :1]), rx], dim=1)
-    done = torch.zeros(Bsz, dtype=torch.bool, device=device)
-    if Bsz >= 3:
-        done[1] = True
-        data.c[2, 0, 0] = float("inf")
-    X, U, lam, s, lam_f, s_f, nu_dyn = it
-    args = [data.A, data.B, data.c, data.qx, data.qu, data.h, data.hf, stat.Gx, stat.Gu,
-            stat.Gf, stat.Hx, stat.Hu, stat.HxN, lam / s, lam_f / s_f, *it,
-            req, rineq, rineq_f, rx_pad, rxN, ru, t(scale_p), done]
-    return args, dict(tau=0.995, n_comp=N * ni + ni_f)
+    calls of its wrapper, in a window in which the profiler recorded every
+    launch that the wrapper's counter made (`kernel_times.device_ms`; what
+    the wrapper runs around the kernel is not counted). Returns the time
+    and the launches recorded in each window measured."""
+    try:
+        return device_ms(fn, KERNEL_SYMBOLS[kernel], n, lambda: WRAPPERS[kernel].launches)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 IPM_OUTPUTS = ("X", "U", "lam", "s", "lam_f", "s_f", "nu_dyn", "req", "rineq", "rineq_f",
@@ -397,8 +327,10 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
         resid_flops = N * (4 * nxx + 2 * nxu + 2 * ni * nx) + Nni * 2 * (nx + nu) \
             + 2 * ni_f * nx + 2 * nxx + 2 * ni_f * nx + N * (2 * nu * nu + 2 * ni * nu + 2 * nxu)
         # the curvature Gx' diag(W) Gx + Hx, Gx' diag(W) Gu, Gu' diag(W) Gu + Hu
-        # per stage and HxN + Gf' diag(W_f) Gf: 3 operations a term
-        curv_flops = 3 * (N * ni * (nxx + nxu + nu * nu) + ni_f * nxx)
+        # per stage and HxN + Gf' diag(W_f) Gf: the rows of G scaled by W once,
+        # then 2 operations a term
+        curv_flops = 2 * (N * ni * (nxx + nxu + nu * nu) + ni_f * nxx) \
+            + N * ni * (nx + nu) + ni_f * nx
         flops = Bsz * (N * (fact + ff + 2 * fwd) + 4 * rhs + resid_flops + curv_flops
                        + 40 * (Nni + ni_f))
     else:   # fused_response, always float32
@@ -446,13 +378,14 @@ def time_kernels():
     t = {}
     for k, (kern, plain) in pairs.items():
         p1 = bench.cuda_ms(plain, 5)
-        k1, k2 = kernel_ms(kern, k, 30), kernel_ms(kern, k, 30)
+        (k1, seen1), (k2, seen2) = kernel_ms(kern, k, 30), kernel_ms(kern, k, 30)
         w = bench.cuda_ms(kern, 30)
         p2 = bench.cuda_ms(plain, 5)
         t[k] = (min(k1, k2), min(p1, p2))
         extra = f", torch blocked(2) {bench.cuda_ms(blocked, 5):.4f} ms" if k == "backward_K" else ""
         say(f"[3] {k} at B=512 N=15 f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
-            f"plain {t[k][1]:.4f} ms{extra}, bound " + "{:.4f} ms ({})".format(*kernel_bound(k)))
+            f"plain {t[k][1]:.4f} ms{extra}, bound " + "{:.4f} ms ({})".format(*kernel_bound(k))
+            + f", profiler windows of 30 recorded {seen1} and {seen2} launches")
     return t
 
 

@@ -42,7 +42,7 @@
 // four lanes sharing an SM. The bytes it must move (the lane's data,
 // weights, iterate and residuals, about 53 KB per lane in float32 at the
 // rocket's widths) would take 8.3 us at 3.35 TB/s for B = 512, its
-// operations (the curvature included) 11.5 us at the float32 peak
+// operations (the curvature included) 9.7 us at the float32 peak
 // (chip_smoke.kernel_bound).
 
 #include "newton.cuh"
@@ -618,18 +618,10 @@ size_t ipm_bytes(int N, int nx, int nu, int ni, int ni_f, bool* on_chip) {
   return *on_chip ? full : ipm_layout<T>(L, nullptr, N, nx, nu, ni, ni_f, false) * sizeof(T);
 }
 
-// The instantiation for these widths: nx = 17 with each nu, else general.
+// The instantiation for these widths.
 template <typename T>
 auto ipm_kernel(int nx, int nu) {
-  if (nx == NX_FIXED) {
-    switch (nu) {
-      case 1: return ipm_iter_kernel<T, NX_FIXED, 1>;
-      case 2: return ipm_iter_kernel<T, NX_FIXED, 2>;
-      case 3: return ipm_iter_kernel<T, NX_FIXED, 3>;
-      default: return ipm_iter_kernel<T, NX_FIXED, 4>;
-    }
-  }
-  return ipm_iter_kernel<T, 0, 0>;
+  RNM_BY_WIDTH(ipm_iter_kernel, T, nx, nu);
 }
 
 template <typename T>

@@ -35,15 +35,17 @@
 //     by shuffles), and dnu is one parallel pass after it. Where the
 //     sequences do not fit (long horizons in float64), they stay in device
 //     memory;
-//   * nx = 17 (the rocket) with each nu is its own instantiation, so the
-//     dot products unroll; any other nx <= 32 takes the general path.
+//   * each model's (nx, nu) is its own instantiation (RNM_BY_WIDTH), so
+//     the dot products unroll and the nu x nu blocks stay in registers; any
+//     other nx <= 32, nu <= 4 takes the general path, which spills at the
+//     64-register cap and runs the rocket's shape about 3x slower.
 //
 // Bound: latency. Per stage a lane does about 4*nx^3 FMAs in four
 // dependent phases, and the stages are strictly sequential over N, so the
 // time is the chain of barriers and shared-memory round trips, stretched by
 // the three other lanes that share the SM at B = 512 (one lane an SM runs
-// the chain in about 60 % of the time: tools/phase_stamps.py), not the
-// bytes or FLOPs of the call.
+// the chain in about 60 % of the time), not the bytes or FLOPs of the
+// call.
 
 #include "newton.cuh"
 #include "occupancy.cuh"
@@ -224,31 +226,15 @@ size_t rs_bytes(int N, int nx, int nu, bool* on_chip) {
   }, N, nx, nu, on_chip);
 }
 
-// The instantiation for these widths: nx = 17 with each nu, else general.
+// The instantiation for these widths.
 template <typename T>
 auto fp_kernel(int nx, int nu) {
-  if (nx == NX_FIXED) {
-    switch (nu) {
-      case 1: return factor_predictor_kernel<T, NX_FIXED, 1>;
-      case 2: return factor_predictor_kernel<T, NX_FIXED, 2>;
-      case 3: return factor_predictor_kernel<T, NX_FIXED, 3>;
-      default: return factor_predictor_kernel<T, NX_FIXED, 4>;
-    }
-  }
-  return factor_predictor_kernel<T, 0, 0>;
+  RNM_BY_WIDTH(factor_predictor_kernel, T, nx, nu);
 }
 
 template <typename T>
 auto rs_kernel(int nx, int nu) {
-  if (nx == NX_FIXED) {
-    switch (nu) {
-      case 1: return resolve_kernel<T, NX_FIXED, 1>;
-      case 2: return resolve_kernel<T, NX_FIXED, 2>;
-      case 3: return resolve_kernel<T, NX_FIXED, 3>;
-      default: return resolve_kernel<T, NX_FIXED, 4>;
-    }
-  }
-  return resolve_kernel<T, 0, 0>;
+  RNM_BY_WIDTH(resolve_kernel, T, nx, nu);
 }
 
 template <typename T>

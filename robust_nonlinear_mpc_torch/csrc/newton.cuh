@@ -18,8 +18,8 @@
 // The sweeps, a chain of nx-wide dot products, run on one warp: lane i holds
 // the i-th entry of the state and shuffles hand it to the others. The
 // factorization's stage spreads over the whole block with four barriers.
-// Widths are compile-time for the instantiated (NXC, NUC) and runtime (0)
-// for the general path.
+// Widths are compile-time for each supported model's (NXC, NUC) and runtime
+// (0) for the general path (`RNM_BY_WIDTH`).
 //
 // The pointers carry no __restrict__: a kernel hands in sequences that it
 // wrote itself a moment earlier, which the read-only data path must not
@@ -36,9 +36,16 @@ constexpr int MAXNX = 32;
 constexpr int MAXNU = 4;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// the width compiled as its own instantiation (the rocket); any other
-// nx <= MAXNX takes the general path
-constexpr int NX_FIXED = 17;
+// The widths compiled as their own instantiations: (nx, nu) of each of the
+// system's models, the rocket (17, 4), the quadrotor (13, 4) and the
+// pendulum (4, 1). Any other nx <= MAXNX, nu <= MAXNU takes the general
+// path (runtime widths, 0). Returns `KERNEL<T, NXC, NUC>` for the lane's
+// widths, in a function body:
+#define RNM_BY_WIDTH(KERNEL, T, nx, nu)                \
+  if ((nx) == 17 && (nu) == 4) return KERNEL<T, 17, 4>; \
+  if ((nx) == 13 && (nu) == 4) return KERNEL<T, 13, 4>; \
+  if ((nx) == 4 && (nu) == 1) return KERNEL<T, 4, 1>;   \
+  return KERNEL<T, 0, 0>
 
 // Resident blocks per SM the one-block-per-lane kernels are compiled for:
 // four keep B = 512 lanes in one wave on 132 SMs in float32 (at most 64

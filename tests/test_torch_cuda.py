@@ -3,9 +3,9 @@ versions on the same card inputs (float64 to 1e-10, float32 to 1e-4,
 relative to each output's largest entry): the fused Newton kernels and the
 whole-iteration kernel at the main path's shape, a ragged batch and a long
 horizon (the Newton kernels also at narrow inputs), at a batch that leaves
-the last wave part-filled and at a width off the instantiated one (the
-general path), the response kernel
-(float32 only) at the main path's shape and a ragged batch, the SLS
+the last wave part-filled and at the other models' widths and the general
+(runtime-width) path, the response
+kernel (float32 only) at the main path's shape and a ragged batch, the SLS
 backward kernel at the Newton kernels' cases.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
@@ -45,8 +45,10 @@ def test_ipm_iteration_matches_plain(smoke, Bsz, N, dtype):
 
 
 # (B, N, nx, nu): 529 lanes leave the last wave of one block per lane
-# part-filled; nx = 7 takes the general (runtime-width) path
-EDGES = [(529, 15, 17, 4), (8, 15, 7, 4), (8, 15, 7, 2), (8, 60, 7, 4)]
+# part-filled; the pendulum's (4, 1) and the quadrotor's (13, 4) widths are
+# instantiated like the rocket's; nx = 7 and 32 take the general path
+EDGES = [(529, 15, 17, 4), (8, 15, 4, 1), (8, 15, 7, 3), (8, 60, 7, 4), (8, 15, 13, 4),
+         (8, 15, 32, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
