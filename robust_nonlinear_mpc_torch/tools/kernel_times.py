@@ -7,11 +7,10 @@ only) over CALLS = 30 calls of its wrapper, at B = 512, N = 15. The profiler's c
 equal the wrapper's own launch counter over the window; a window in which
 the profiler recorded fewer launches is measured again (at most
 `MAX_WINDOWS` times), so every reported time is the mean over a window in
-which each launch was recorded. Each window starts with a warm-up step
-whose records are dropped. `--windows W` also runs W windows of each kernel
-in three modes: CPU and CUDA activity traced, CUDA only, and CUDA only
-after the warm-up step (the timing's mode), and reports the launches each
-window recorded and where in the window the missing ones were.
+which each launch was recorded. `--windows W` also runs W windows of each
+kernel with CPU and CUDA activity traced and W with CUDA activity only (the
+timing's mode), and reports the launches each window recorded and, for
+launches that run back to back, where in the window the missing ones were.
 
 The kernels timed are those of the package first on the import path: run
 by path with PYTHONPATH set to another checkout's root, the tool times that
@@ -40,8 +39,6 @@ BATCH, HORIZON = 512, 15
 # calls of a wrapper in one profiler window
 CALLS = 30
 MAX_WINDOWS = 5
-# calls in a window's warm-up step, whose records are not kept
-WARMUP_CALLS = 2
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
@@ -110,28 +107,17 @@ def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
     return args, dict(tau=0.995, n_comp=N * ni + ni_f)
 
 
-def profile_window(fn, symbol, n, cpu=False, warmup=True):
-    """n calls of `fn` under torch.profiler, after a warm-up step
-    (WARMUP_CALLS calls) in which tracing runs but nothing is kept: records
-    of the first launches after tracing starts can be lost or stretched.
-    Returns (the kernel records' device time in ms, the records seen, their
-    start times in us)."""
+def profile_window(fn, symbol, n, cpu=False):
+    """n calls of `fn` under torch.profiler. Returns (the kernel records'
+    device time in ms, the records seen, their start times in us)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    sched = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
-    with profile(activities=acts, schedule=sched) as prof:
-        if warmup:
-            for _ in range(WARMUP_CALLS):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
+    with profile(activities=acts) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        if warmup:
-            prof.step()
     evs = [ev for ev in prof.events()
            if ev.device_type == DeviceType.CUDA and symbol in ev.name]
     total = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
@@ -142,18 +128,18 @@ def device_ms(fn, symbol, n, counter=None):
     """Mean device time (ms) of one launch of the kernel named `symbol`, over
     n calls of its wrapper `fn` in one profiler window in which every launch
     was recorded. `counter()` is the wrapper's launch count: the launches
-    made in the window (its warm-up step's too) must equal n + WARMUP_CALLS,
-    and the records seen n. A window with fewer records is measured again;
-    after MAX_WINDOWS such windows this raises."""
+    made in the window must equal n and the records seen. A window with
+    fewer records is measured again; after MAX_WINDOWS such windows this
+    raises."""
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(MAX_WINDOWS):
         before = counter() if counter else None
         total, count, _ = profile_window(fn, symbol, n)
-        if counter and counter() - before != n + WARMUP_CALLS:
+        if counter and counter() - before != n:
             raise RuntimeError(f"{symbol}: the wrapper launched {counter() - before} times, "
-                               f"expected {n + WARMUP_CALLS}")
+                               f"expected {n}")
         seen.append(count)
         if count == n:
             return total / n, seen
@@ -213,13 +199,11 @@ def main(argv=None):
             out["windows_seen"][name][k] = seen
         if a.windows > 0:
             out.setdefault("windows", {})[name] = diag = {}
-            modes = {"cpu+cuda": (True, False), "cuda": (False, False),
-                     "cuda, warm-up": (False, True)}
             for k, (fn, symbol, counter) in ks.items():
-                for mode, (cpu, warm) in modes.items():
+                for mode, cpu in (("cpu+cuda", True), ("cuda", False)):
                     rows = []
                     for _ in range(a.windows):
-                        total, count, starts = profile_window(fn, symbol, CALLS, cpu, warm)
+                        total, count, starts = profile_window(fn, symbol, CALLS, cpu)
                         rows.append({"seen": count, "ms": total / max(count, 1),
                                      "missing_at": missing_positions(starts, CALLS)})
                     diag[f"{k} {mode}"] = rows
