@@ -17,8 +17,9 @@ before the result lines):
      and the general path at (7, 3), (32, 2); the whole-iteration kernel K6 at the same (B, N) with ni = 42,
      ni_f = 34 (a lane marked done and a lane whose step is not finite
      included) and at the same batch of 529 and widths; the response
-     kernel K4 at B in {512, 37}, float32 to 1e-4; the SLS backward kernel
-     K3 at the Newton kernels' cases with ni = 42, ni_f = 34; per-call times
+     kernel K4, float32 to 1e-4, and the SLS backward kernel K3 (ni =
+     2 (nx + nu), ni_f = 2 nx) at the same (B, N), batch of 529 and widths
+     (K3 also at nu in {1, 2}); per-call times
      of every kernel and its plain version at (512, 15) float32, beside the
      least time the card could take (bytes over 3.35 TB/s, operations over
      the CUDA-core peak), and for K3 also the column-blocked torch backward
@@ -70,15 +71,16 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_blocked
 from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
-from robust_nonlinear_mpc_torch.tools import fused_bwd_bench
 from robust_nonlinear_mpc_torch.tools.kernel_times import (
     NI,
     NI_F,
     NU,
     NX,
+    backward_inputs,
     device_ms,
     ipm_inputs,
     newton_inputs,
+    response_inputs,
 )
 from robust_nonlinear_mpc_torch.utils.batch import tree_map
 
@@ -147,6 +149,7 @@ KERNEL_CASES = [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)]
 # (13, 4), and the general (runtime-width) path at nx = 7 and at the largest
 # width, 32
 EDGE_CASES = [(529, 15, NX, NU), (8, 15, 4, 1), (8, 15, 7, 3), (8, 15, 13, 4), (8, 15, 32, 2)]
+# K6's and K4's cases: the main shape, a ragged batch, a long horizon, the edges
 IPM_CASES = [(512, 15, NX, NU), (37, 15, NX, NU), (8, 60, NX, NU)] + EDGE_CASES
 
 
@@ -202,26 +205,13 @@ def compare_ipm(Bsz, N, dtype, nx=NX, nu=NU):
     return out
 
 
-def response_inputs(Bsz, N, device, seed, nx=NX, nu=NU, nw=NX, ni=NI, ni_f=NI_F):
-    """Arguments of the fused response (float32): random stable dynamics,
-    gains with zero columns j > k, random constraint blocks."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    K = 0.05 * rng.standard_normal((Bsz, N, N + 1, nu, nx))
-    K *= (np.arange(N + 1)[None, :] <= np.arange(N)[:, None])[None, :, :, None, None]
-    return [t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))),
-            t(0.2 * rng.standard_normal((Bsz, N, nx, nu))),
-            t(0.01 * rng.standard_normal((N + 1, nx, nw))), t(K),
-            t(rng.standard_normal((ni, nx))), t(rng.standard_normal((ni, nu))),
-            t(rng.standard_normal((ni_f, nx))), t(1e2 * np.eye(nx)), t(1e2 * np.eye(nu)),
-            t(1e2 * np.eye(nx))]
-
-
 RESPONSE_OUTPUTS = ("Phi_x", "Phi_u", "beta", "beta_f", "backoff", "backoff_f", "tube")
 
 
-def compare_response(Bsz, N=15):
-    args = response_inputs(Bsz, N, "cuda", seed=Bsz)
+def compare_response(Bsz, N=15, nx=NX, nu=NU):
+    """K4 against its plain version on the same card inputs (nw = nx, ni =
+    2 (nx + nu), ni_f = 2 nx)."""
+    args = response_inputs(Bsz, N, "cuda", seed=Bsz + N + nx, nx=nx, nu=nu)
     got = fused_response.fused_response(*args)
     ref = fused_response._plain_fused_response(*args)
     torch.cuda.synchronize()
@@ -229,15 +219,15 @@ def compare_response(Bsz, N=15):
             for name, a, b in zip(RESPONSE_OUTPUTS, got, ref)}
 
 
-def compare_backward(Bsz, N, nu, dtype):
-    """K3 against its plain version on the same card inputs (the tool's
-    inputs at the rocket's widths)."""
-    args = fused_bwd_bench.inputs(Bsz, N, NX, nu, NI, NI_F, "cuda", dtype, seed=Bsz + N + nu)
+def compare_backward(Bsz, N, nu, dtype, nx=NX):
+    """K3 against its plain version on the same card inputs (ni = 2 (nx +
+    nu), ni_f = 2 nx: the rocket's 42 and 34)."""
+    args = backward_inputs(Bsz, N, nx, nu, dtype, "cuda", seed=Bsz + N + nu)
     got = fused_backward.backward_K(*args)
     ref = fused_backward._plain_backward_K(*args)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
-        fail(f"backward_K B={Bsz} N={N} nu={nu} {dtype}: not finite")
+        fail(f"backward_K B={Bsz} N={N} nx={nx} nu={nu} {dtype}: not finite")
     return {("backward_K", "K"): rel_err(got, ref)}
 
 
@@ -252,9 +242,13 @@ def check_kernels():
     cases += [(dtype, (B, N), lambda B=B, N=N, nx=nx, nu=nu, dtype=dtype:
                compare_ipm(B, N, dtype, nx=nx, nu=nu))
               for dtype in (torch.float64, torch.float32) for B, N, nx, nu in IPM_CASES]
-    cases += [(torch.float32, (B, 15), lambda B=B: compare_response(B)) for B in (512, 37)]
+    cases += [(torch.float32, (B, N), lambda B=B, N=N, nx=nx, nu=nu:
+               compare_response(B, N, nx=nx, nu=nu)) for B, N, nx, nu in IPM_CASES]
     cases += [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_backward(B, N, nu, dtype))
               for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
+    cases += [(dtype, (B, N), lambda B=B, N=N, nx=nx, nu=nu, dtype=dtype:
+               compare_backward(B, N, nu, dtype, nx=nx))
+              for dtype in (torch.float64, torch.float32) for B, N, nx, nu in EDGE_CASES]
     worst, main_err = {}, {}
     for dtype, (Bsz, N), run in cases:
         for (kname, oname), (r, ab) in run().items():
@@ -309,12 +303,20 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
         words, flops = Bsz * (newton_in + factors + newton_out), Bsz * N * (ff + fwd)
     elif name == "backward_K":
         # what this run needs: the eta rows of the active (k, j) pairs
-        # (j <= k), all of A, B and eta_f, K written whole (zeros for j > k)
+        # (j <= k), all of A and B, eta_f of the N gain columns (column N is
+        # all zero), K written whole (zeros for j > k)
         pairs = N * (N + 1) // 2
-        words = Bsz * (N * (nxx + nxu) + pairs * ni + (N + 1) * ni_f + N * (N + 1) * nxu) \
+        words = Bsz * (N * (nxx + nxu) + pairs * ni + N * ni_f + N * (N + 1) * nxu) \
             + ni * (nx + nu) + ni_f * nx + 2 * nxx + nu * nu
-        per_pair = 2 * ni * (nxx + nu * nu) + 4 * nx * nxx + 6 * nxx * nu + 4 * nu * nu * nx
-        flops = Bsz * (pairs * per_pair + (N + 1) * 2 * ni_f * nxx)
+        # the least work of a pair: the rows of [Gx Gu] scaled by eta once,
+        # the symmetric products (Cxx, Cuu, A'SA, B'SB, F'K) on one triangle
+        # (a triangle of an n-square from m-term dots: n (n + 1) m), S [A B]
+        # and F = B'SA whole, K = -H^{-1} F
+        tri = lambda n, m: n * (n + 1) * m
+        per_pair = ni * (nx + nu) + tri(nx, ni) + tri(nu, ni) + 2 * nxx * (nx + nu) \
+            + tri(nx, nx) + 2 * nu * nxx + tri(nu, nx) + 2 * nu * nu * nx + tri(nx, nu)
+        # the terminal Gf' diag(eta_f[j]) Gf of each of the N gain columns
+        flops = Bsz * (pairs * per_pair + N * (ni_f * nx + tri(nx, ni_f)))
     elif name == "ipm_iteration":
         Nni = N * ni
         iterate = (N + 1) * nx + N * nu + 2 * Nni + 2 * ni_f + N * nx
@@ -335,8 +337,10 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
                        + 40 * (Nni + ni_f))
     else:   # fused_response, always float32
         size = 4
+        # the active (k, j) pairs (j <= k): K is read there only, Phi and
+        # beta are written whole (zeros for j > k)
         cols = N * (N + 1) // 2
-        words = Bsz * (N * (nxx + nxu) + N * (N + 1) * nu * nx
+        words = Bsz * (N * (nxx + nxu) + cols * nu * nx
                        + (N + 1) ** 2 * nx * nw + N * (N + 1) * nu * nw
                        + N * N * ni + (N + 1) * ni_f + N * ni + ni_f + 1) \
             + (N + 1) * nx * nw + (ni + ni_f) * nx + ni * nu + 2 * nxx + nu * nu
@@ -359,7 +363,7 @@ def time_kernels():
     fact = fused_qp.factor_predictor(*mats, *rhs)[3]
     args, kw = ipm_inputs(512, 15, torch.float32, "cuda", seed=2)
     rargs = response_inputs(512, 15, "cuda", seed=2)
-    bargs = fused_bwd_bench.inputs(512, 15, NX, NU, NI, NI_F, "cuda", torch.float32, seed=2)
+    bargs = backward_inputs(512, 15, NX, NU, torch.float32, "cuda", seed=2)
     pairs = {
         "factor_predictor": (lambda: fused_qp.factor_predictor(*mats, *rhs),
                              lambda: fused_qp._plain_factor_predictor(*mats, *rhs)),

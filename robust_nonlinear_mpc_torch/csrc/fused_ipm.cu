@@ -195,7 +195,7 @@ __device__ __forceinline__ Out<T> lane_seq(T* chip, T* work, int n) {
 }
 
 template <typename T, int NXC, int NUC>
-__global__ void __launch_bounds__(THREADS, Residency<T>::blocks)
+__global__ void __launch_bounds__(THREADS, (Residency<T, NXC>::blocks))
     ipm_iter_kernel(IpmArgs<T> a, int N, int nx_, int nu_, int ni, int ni_f, T tau, T n_comp,
                     int on_chip) {
   extern __shared__ __align__(16) unsigned char smem_raw[];

@@ -37,8 +37,9 @@
 //     memory;
 //   * each model's (nx, nu) is its own instantiation (RNM_BY_WIDTH), so
 //     the dot products unroll and the nu x nu blocks stay in registers; any
-//     other nx <= 32, nu <= 4 takes the general path, which spills at the
-//     64-register cap and runs the rocket's shape about 3x slower.
+//     other nx <= 32, nu <= 4 takes the general path, whose width-32 arrays
+//     live on the stack (half the blocks an SM, `Residency`), several times
+//     slower at the rocket's shape.
 //
 // Bound: latency. Per stage a lane does about 4*nx^3 FMAs in four
 // dependent phases, and the stages are strictly sequential over N, so the
@@ -133,7 +134,7 @@ __host__ __device__ size_t rs_layout(RsSmem<T>& L, T* base, int N, int nx, int n
 }
 
 template <typename T, int NXC, int NUC>
-__global__ void __launch_bounds__(THREADS, Residency<T>::blocks) factor_predictor_kernel(
+__global__ void __launch_bounds__(THREADS, (Residency<T, NXC>::blocks)) factor_predictor_kernel(
     const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ Cxx,
     const T* __restrict__ Cuu, const T* __restrict__ Cxu, const T* __restrict__ PN,
     const T* __restrict__ rbx, const T* __restrict__ rbxN, const T* __restrict__ rbu,
@@ -169,7 +170,7 @@ __global__ void __launch_bounds__(THREADS, Residency<T>::blocks) factor_predicto
 }
 
 template <typename T, int NXC, int NUC>
-__global__ void __launch_bounds__(THREADS, Residency<T>::blocks) resolve_kernel(
+__global__ void __launch_bounds__(THREADS, (Residency<T, NXC>::blocks)) resolve_kernel(
     const T* __restrict__ A, const T* __restrict__ B, const T* __restrict__ K,
     const T* __restrict__ FxuT, const T* __restrict__ Fuu_tri,
     const T* __restrict__ Fiv_tri, const T* __restrict__ Pseq,

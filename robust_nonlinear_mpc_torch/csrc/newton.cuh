@@ -47,12 +47,14 @@ constexpr int WARPS = THREADS / 32;
   if ((nx) == 4 && (nu) == 1) return KERNEL<T, 4, 1>;   \
   return KERNEL<T, 0, 0>
 
-// Resident blocks per SM the one-block-per-lane kernels are compiled for:
-// four keep B = 512 lanes in one wave on 132 SMs in float32 (at most 64
-// registers a thread at 256 threads); float64 is held to two.
-template <typename T>
+// Resident blocks per SM the one-block-per-lane kernels (up to 256 threads)
+// are compiled for, which sets their register budget: at a model's widths
+// (NXC > 0) four keep B = 512 lanes in one wave on 132 SMs in float32 (at
+// most 64 registers a thread), float64 is held to two; the general path
+// (NXC = 0), whose width-32 arrays live on the stack, takes half as many.
+template <typename T, int NXC>
 struct Residency {
-  static constexpr int blocks = sizeof(T) == 4 ? 4 : 2;
+  static constexpr int blocks = (sizeof(T) == 4 ? 4 : 2) / (NXC > 0 ? 1 : 2);
 };
 
 __host__ __device__ __forceinline__ int tri_index(int u, int v, int nu) {
@@ -231,6 +233,70 @@ template <typename T>
 __device__ __forceinline__ void copy_async(T* dst, const T* src, int n, int lane, int nthr) {
   for (int i = lane; i < n; i += nthr) cp_async_elem(dst + i, src + i);
 }
+
+// ---- 16-byte shared-memory rows, for the warp-per-column kernels ---------
+// A row of n <= NL values that starts 16-byte aligned is read (written) as
+// ceil(n / V) vector accesses of V = 16 / sizeof(T) values: one shared load
+// instruction then feeds V multiply-adds of every lane. Storage past n up
+// to the next multiple of V is padding: loads read it and drop it, stores
+// write it.
+template <typename T>
+struct V16;
+template <>
+struct V16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static __forceinline__ float get(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  __device__ static __forceinline__ float4 make(const float* e) {
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+};
+template <>
+struct V16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static __forceinline__ double get(const double2& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+  __device__ static __forceinline__ double2 make(const double* e) {
+    return make_double2(e[0], e[1]);
+  }
+};
+
+// out[0..n) = p[0..n): NL is the compile-time bound of the register array,
+// n the runtime width (n == NL folds the guards away)
+template <typename T, int NL>
+__device__ __forceinline__ void load_row(const T* p, T* out, int n) {
+  using V = V16<T>;
+#pragma unroll
+  for (int q = 0; q < (NL + V::n - 1) / V::n; ++q)
+    if (q * V::n < n) {
+      const typename V::type v = reinterpret_cast<const typename V::type*>(p)[q];
+#pragma unroll
+      for (int t = 0; t < V::n; ++t)
+        if (q * V::n + t < NL) out[q * V::n + t] = V::get(v, t);
+    }
+}
+
+// p[0..n) = in[0..n); the padding up to the vector's end is written as 0
+template <typename T, int NL>
+__device__ __forceinline__ void store_row(T* p, const T* in, int n) {
+  using V = V16<T>;
+#pragma unroll
+  for (int q = 0; q < (NL + V::n - 1) / V::n; ++q)
+    if (q * V::n < n) {
+      T e[V::n];
+#pragma unroll
+      for (int t = 0; t < V::n; ++t)
+        e[t] = (q * V::n + t < NL && q * V::n + t < n) ? in[q * V::n + t] : T(0);
+      reinterpret_cast<typename V::type*>(p)[q] = V::make(e);
+    }
+}
+
+// a row width rounded up to a whole number of 16-byte vectors of either type
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
 // ---- per-stage sequences -------------------------------------------------
 

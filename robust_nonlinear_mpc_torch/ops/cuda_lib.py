@@ -93,8 +93,7 @@ def kernel_info(name, dtype, Bsz, N, nx, nu, ni, ni_f, nw=None):
         raise RuntimeError(f"{name} info failed: {lib.rnm_error_string(err).decode()}")
     regs, static, dynamic, local, blocks = list(out)
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    grid = Bsz * (N + 1) if name == "backward_K" else Bsz
-    waves = -(-grid // (sms * blocks)) if blocks > 0 else None
+    waves = -(-Bsz // (sms * blocks)) if blocks > 0 else None
     return {"registers": regs, "static_smem": static, "dynamic_smem": dynamic,
             "local_bytes": local, "blocks_per_sm": blocks, "sms": sms, "waves": waves}
 

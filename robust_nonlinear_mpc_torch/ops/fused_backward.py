@@ -10,7 +10,8 @@ Returns K (B,N,N+1,nu,nx), the maths of `backward_solve_folded` (S is not
 returned). `FastSLSOptions(sls_block=-1)` runs it.
 
 Dispatch is by the tensors' device only: a CUDA tensor launches the kernel
-(`csrc/fused_backward.cu`, float32 or float64; a failed build or launch
+(`csrc/fused_backward.cu`, float32 or float64, nx <= 32, nu <= 4; one block
+of up to 8 warps a lane, one warp a column pair; a failed build or launch
 raises), a CPU tensor runs the plain twin.
 """
 
@@ -21,6 +22,7 @@ import torch
 from robust_nonlinear_mpc_torch.ops.cuda_lib import check, launch, suffix
 from robust_nonlinear_mpc_torch.ops.sls_kernels import SLSRegs, backward_solve_folded
 
+MAX_NX = 32
 MAX_NU = 4
 MAX_SMEM_BYTES = 227 * 1024
 
@@ -31,9 +33,16 @@ def _plain_backward_K(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
     return backward_solve_folded(A, B, Gmat, Gf, eta, eta_f, regs)[1]
 
 
-def smem_bytes(nx, nu, ni, ni_f, itemsize):
-    """Dynamic shared memory of one block (the kernel's layout)."""
-    return itemsize * (4 * nx * nx + 4 * nx * nu + 2 * nu * nu + max(ni, ni_f) + ni * (nx + nu))
+def smem_bytes(nx, nu, ni, ni_f, itemsize, warps=1):
+    """Dynamic shared memory of one block of `warps` warps (the kernel's
+    `BwdLayout`): rows padded to 16 bytes; the block's [Gx Gu] (with a tail),
+    Gf, Q_reg and R_reg, and per warp [A_k B_k], the two-slot eta ring, S and
+    the stage's Hessian columns."""
+    nxp = -(-nx // 4) * 4
+    ld, nep = nxp + 4, -(-max(ni, ni_f) // 4) * 4
+    block = ni * ld + nxp + ni_f * nxp + nx * nxp + 16
+    warp = nx * ld + 2 * nep + nx * nxp + (nx + nu) * ld
+    return itemsize * (block + warps * warp)
 
 
 def backward_K(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
@@ -48,8 +57,9 @@ def backward_K(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
     Bsz, N, nx, _ = A.shape
     nu, ni, ni_f = B.shape[3], Gmat.shape[0], Gf.shape[0]
     suffix(A.dtype)
-    if nu > MAX_NU:
-        raise ValueError(f"backward_K: the kernel takes nu <= {MAX_NU}, got {nu}")
+    if nx > MAX_NX or nu > MAX_NU:
+        raise ValueError(f"backward_K: the kernel takes nx <= {MAX_NX}, nu <= {MAX_NU}, "
+                         f"got nx={nx}, nu={nu}")
     if smem_bytes(nx, nu, ni, ni_f, A.element_size()) > MAX_SMEM_BYTES:
         raise ValueError(f"backward_K: nx={nx}, ni={ni} need more than {MAX_SMEM_BYTES} bytes "
                          "of shared memory per block")

@@ -14,8 +14,8 @@ Phi_u (B,N,N+1,nu,nw), beta (B,N,N,ni), beta_f (B,N+1,ni_f),
 backoff (B,N,ni), backoff_f (B,ni_f), tube cost (B,)).
 
 Dispatch is by the tensors' device only: a CUDA tensor launches the kernel
-(`csrc/fused_response.cu`; a failed build or launch raises), a CPU tensor
-runs the plain twin.
+(`csrc/fused_response.cu`, nx, nw <= 32, nu <= 4, any N; a failed build or
+launch raises), a CPU tensor runs the plain twin.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     tube_cost,
 )
 
+MAX_NX = 32
+MAX_NU = 4
 MAX_SMEM_BYTES = 227 * 1024
 
 
@@ -44,11 +46,17 @@ def _plain_fused_response(A, B, E, K, Gx, Gu, Gf, Q_reg, R_reg, Q_reg_f, eps=1e-
     return Phi_x, Phi_u, beta, beta_f, backoff, backoff_f, tube
 
 
-def smem_bytes(N, nx, nu, nw, ni, ni_f):
-    """Dynamic shared memory of one block (the kernel's layout): two response
-    rows, the stage's Phi_u, A_k, B_k, sqrt(beta) and a reduction buffer."""
-    J = N + 1
-    return 4 * (2 * J * nx * nw + J * nu * nw + nx * nx + nx * nu + J * max(ni, ni_f) + 256)
+def smem_bytes(nx, nu, nw, ni, ni_f, warps=1):
+    """Dynamic shared memory of one block of `warps` warps (the kernel's
+    `RspLayout`, in float32, rows padded to 16 bytes): the block's stacked
+    row blocks [Gx Gu; Q_reg 0; 0 R_reg] and [Gf; Q_reg_f] (rows padded to
+    a multiple of 32) and 32 partial sums, and per warp two slots of
+    [A_k B_k], K[k, j] and the column's [Phi_x; Phi_u] by disturbance.
+    Nothing depends on N."""
+    nxp = -(-nx // 4) * 4
+    ld = nxp + 4
+    rows = -(-(ni + nx + nu) // 32) * 32 + -(-(ni_f + nx) // 32) * 32
+    return 4 * (rows * ld + 32 + warps * (2 * nx * ld + nu * nxp + nw * ld))
 
 
 def fused_response(A, B, E, K, Gx, Gu, Gf, Q_reg, R_reg, Q_reg_f, eps=1e-10):
@@ -61,11 +69,12 @@ def fused_response(A, B, E, K, Gx, Gu, Gf, Q_reg, R_reg, Q_reg_f, eps=1e-10):
         raise ValueError("A, B and K must be batch-leading (B,N,nx,nx) / (B,N,nx,nu) / (B,N,N+1,nu,nx)")
     Bsz, N, nx, _ = A.shape
     nu, nw, ni, ni_f = B.shape[3], E.shape[2], Gx.shape[0], Gf.shape[0]
-    if smem_bytes(N, nx, nu, nw, ni, ni_f) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_response: N={N}, nx={nx}, nw={nw} need more than {MAX_SMEM_BYTES} bytes "
-            "of shared memory per block"
-        )
+    if nx > MAX_NX or nw > MAX_NX or nu > MAX_NU:
+        raise ValueError(f"fused_response: the kernel takes nx, nw <= {MAX_NX}, nu <= {MAX_NU}, "
+                         f"got nx={nx}, nw={nw}, nu={nu}")
+    if smem_bytes(nx, nu, nw, ni, ni_f) > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_response: nx={nx}, ni={ni}, ni_f={ni_f} need more than "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory per block")
     f32 = torch.float32
     shapes = {
         "A": (A, (Bsz, N, nx, nx)), "B": (B, (Bsz, N, nx, nu)), "E": (E, (N + 1, nx, nw)),

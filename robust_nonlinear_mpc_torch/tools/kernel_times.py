@@ -1,6 +1,8 @@
-"""Device time of the Newton kernels (K1 `factor_predictor`, K2 `resolve`)
-and of the whole-iteration kernel (K6 `ipm_iteration`) at one shape, on the
-GPU, with the inputs that `chip_smoke.py` checks them on.
+"""Device time of the Newton kernels (K1 `factor_predictor`, K2 `resolve`),
+the whole-iteration kernel (K6 `ipm_iteration`), the SLS backward kernel (K3
+`backward_K`) and the response kernel (K4 `fused_response`, float32 only)
+at one shape, on the GPU, with the inputs that `chip_smoke.py` checks them
+on.
 
 A kernel's time is its device time from torch.profiler (CUDA activity
 only) over CALLS = 30 calls of its wrapper, at B = 512, N = 15. The profiler's count of the kernel's records must
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from robust_nonlinear_mpc_torch.bench import gpu_identity
-from robust_nonlinear_mpc_torch.ops import fused_qp
+from robust_nonlinear_mpc_torch.ops import fused_backward, fused_qp, fused_response
 from robust_nonlinear_mpc_torch.ops.qp_ipm import QPData, QPStatics, _curvature, _residuals
+from robust_nonlinear_mpc_torch.tools import fused_bwd_bench
 
 # the rocket's widths, and the main path's batch and horizon
 NX, NU, NI, NI_F = 17, 4, 42, 34
@@ -107,6 +110,33 @@ def ipm_inputs(Bsz, N, dtype, device, seed, nx=NX, nu=NU, ni=NI, ni_f=NI_F):
     return args, dict(tau=0.995, n_comp=N * ni + ni_f)
 
 
+def backward_inputs(Bsz, N, nx, nu, dtype, device, seed):
+    """Arguments of the SLS backward kernel (`fused_backward.backward_K`):
+    `fused_bwd_bench.inputs` with ni = 2 (nx + nu), ni_f = 2 nx (the rocket's
+    42 and 34)."""
+    return fused_bwd_bench.inputs(Bsz, N, nx, nu, 2 * (nx + nu), 2 * nx, device, dtype,
+                                  seed=seed)
+
+
+def response_inputs(Bsz, N, device, seed, nx=NX, nu=NU, nw=None, ni=None, ni_f=None):
+    """Arguments of the fused response (float32), made with numpy: random
+    stable dynamics, gains with zero columns j > k, random constraint blocks
+    (nw = nx, ni = 2 (nx + nu), ni_f = 2 nx unless given)."""
+    nw = nx if nw is None else nw
+    ni = 2 * (nx + nu) if ni is None else ni
+    ni_f = 2 * nx if ni_f is None else ni_f
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    K = 0.05 * rng.standard_normal((Bsz, N, N + 1, nu, nx))
+    K *= (np.arange(N + 1)[None, :] <= np.arange(N)[:, None])[None, :, :, None, None]
+    return [t(0.9 * np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))),
+            t(0.2 * rng.standard_normal((Bsz, N, nx, nu))),
+            t(0.01 * rng.standard_normal((N + 1, nx, nw))), t(K),
+            t(rng.standard_normal((ni, nx))), t(rng.standard_normal((ni, nu))),
+            t(rng.standard_normal((ni_f, nx))), t(1e2 * np.eye(nx)), t(1e2 * np.eye(nu)),
+            t(1e2 * np.eye(nx))]
+
+
 def profile_window(fn, symbol, n, cpu=False):
     """n calls of `fn` under torch.profiler. Returns (the kernel records'
     device time in ms, the records seen, their start times in us)."""
@@ -170,14 +200,22 @@ def kernels(Bsz, N, dtype):
     A, B = mats[0], mats[1]
     fact = fused_qp.factor_predictor(*mats, *rhs)[3]
     args, kw = ipm_inputs(Bsz, N, dtype, "cuda", seed=2)
-    return {
+    bargs = backward_inputs(Bsz, N, NX, NU, dtype, "cuda", seed=2)
+    out = {
         "factor_predictor": (lambda: fused_qp.factor_predictor(*mats, *rhs),
                              "factor_predictor_kernel", lambda: fused_qp.factor_predictor.launches),
         "resolve": (lambda: fused_qp.resolve(A, B, fact, *rhs2), "resolve_kernel",
                     lambda: fused_qp.resolve.launches),
         "ipm_iteration": (lambda: fused_qp.ipm_iteration(*args, **kw), "ipm_iter_kernel",
                           lambda: fused_qp.ipm_iteration.launches),
+        "backward_K": (lambda: fused_backward.backward_K(*bargs), "backward_K_kernel",
+                       lambda: fused_backward.backward_K.launches),
     }
+    if dtype == torch.float32:   # the response kernel is float32 only
+        rargs = response_inputs(Bsz, N, "cuda", seed=2)
+        out["fused_response"] = (lambda: fused_response.fused_response(*rargs),
+                                 "response_kernel", lambda: fused_response.fused_response.launches)
+    return out
 
 
 def main(argv=None):

@@ -59,7 +59,9 @@ def _close(got, ref, atol, what):
 
 
 @pytest.mark.parametrize("Bc,N,nx,nu,ni,ni_f", [(3, 5, 4, 2, 6, 4), (2, 4, 5, 1, 7, 5),
-                                                (5, 7, 6, 4, 9, 6)])
+                                                (5, 7, 6, 4, 9, 6),
+                                                # the pendulum's and the quadrotor's widths
+                                                (2, 4, 4, 1, 10, 8), (2, 3, 13, 4, 34, 26)])
 def test_plain_backward_K_matches_pallas(Bc, N, nx, nu, ni, ni_f):
     args = _problem(Bc, N, nx, nu, ni, ni_f)
     A, B, G, Gf, eta, eta_f, regs, _ = args
@@ -123,3 +125,16 @@ def test_backward_K_on_cpu_runs_the_plain_twin():
     from robust_nonlinear_mpc_torch import bench
 
     assert bench.launch_counts()["backward_K"] == 0
+
+
+def test_backward_K_refuses_what_the_kernel_cannot_hold():
+    # eight warps (one per column pair at N = 15) fit at the rocket's widths
+    # in both types, and one warp at the widest general path; a layout that
+    # does not fit a single warp is refused
+    assert tb.smem_bytes(17, 4, 42, 34, 4, warps=8) == 51136
+    assert tb.smem_bytes(17, 4, 42, 34, 8, warps=8) == 102272
+    assert tb.smem_bytes(32, 4, 72, 64, 8) <= tb.MAX_SMEM_BYTES
+    assert tb.smem_bytes(17, 4, 2500, 34, 4) > tb.MAX_SMEM_BYTES
+    A = torch.zeros((1, 5, 17, 17), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tb.backward_K(A, *([None] * 6))

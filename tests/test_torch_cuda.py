@@ -4,9 +4,9 @@ relative to each output's largest entry): the fused Newton kernels and the
 whole-iteration kernel at the main path's shape, a ragged batch and a long
 horizon (the Newton kernels also at narrow inputs), at a batch that leaves
 the last wave part-filled and at the other models' widths and the general
-(runtime-width) path, the response
-kernel (float32 only) at the main path's shape and a ragged batch, the SLS
-backward kernel at the Newton kernels' cases.
+(runtime-width) path; the response kernel (float32 only) and the SLS
+backward kernel at the main path's shape, a ragged batch, a long horizon,
+the same edges (K3 also at narrow inputs).
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -82,11 +82,33 @@ def test_fused_response_matches_plain(smoke, Bsz):
         assert rel <= smoke.TOL[torch.float32], f"{kernel} {output}: {rel:.3e}"
 
 
+@pytest.mark.parametrize("Bsz,N,nx,nu", [(8, 60, 17, 4)] + EDGES)
+def test_fused_response_matches_plain_at_edges(smoke, Bsz, N, nx, nu):
+    for (kernel, output), (rel, _) in smoke.compare_response(Bsz, N, nx=nx, nu=nu).items():
+        assert rel <= smoke.TOL[torch.float32], f"{kernel} {output}: {rel:.3e}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("Bsz,N,nu", [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)])
 def test_backward_K_matches_plain(smoke, Bsz, N, nu, dtype):
     for (kernel, output), (rel, _) in smoke.compare_backward(Bsz, N, nu, dtype).items():
         assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("Bsz,N,nx,nu", EDGES)
+def test_backward_K_matches_plain_at_edges(smoke, Bsz, N, nx, nu, dtype):
+    for (kernel, output), (rel, _) in smoke.compare_backward(Bsz, N, nu, dtype, nx=nx).items():
+        assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
+
+
+def test_redesigned_sls_kernels_fill_one_wave(smoke):
+    # K3 and K4 run one block per lane, four lanes an SM in float32
+    from robust_nonlinear_mpc_torch.ops import cuda_lib
+
+    for name in ("backward_K", "fused_response"):
+        info = cuda_lib.kernel_info(name, torch.float32, 512, 15, 17, 4, 42, 34)
+        assert info["waves"] == 1, (name, info)
 
 
 def test_cuda_launches_are_counted(smoke):

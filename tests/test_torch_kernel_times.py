@@ -3,6 +3,12 @@
 and how the tool locates launches the profiler did not record (CPU,
 float64).
 
+The SLS backward (K3) and response (K4) inputs the tool times the kernels
+on go through the plain twins and the JAX Pallas kernels (interpret mode)
+at a small size: K3 in float64 to 1e-10, K4 in float32 to 1e-5 relative
+(the tolerances of tests/test_torch_backward.py and
+tests/test_torch_response.py).
+
 The Newton inputs at the widths of the other models (the pendulum's nx = 4,
 nu = 1 and the quadrotor's nx = 13, nu = 4, which the card's kernels run in
 their own width buckets) go through the plain torch twins and the JAX
@@ -16,9 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from robust_nonlinear_mpc_torch.ops import fused_qp
+from robust_nonlinear_mpc_torch.ops import fused_backward, fused_qp, fused_response
 from robust_nonlinear_mpc_torch.tools import kernel_times
+from robust_nonlinear_mpc_tpu.ops import sls_kernels as js
 from robust_nonlinear_mpc_tpu.ops.pallas_qp import _factor_predictor_batched, _resolve_batched
+from robust_nonlinear_mpc_tpu.ops.pallas_response import fused_response as j_fused_response
+from robust_nonlinear_mpc_tpu.ops.pallas_sls import _backward_K_batched
 
 torch.set_num_threads(1)
 TOL = 1e-10
@@ -65,3 +74,25 @@ def test_ipm_inputs_freeze_lane_1_and_revert_lane_2(nx, nu):
 ])
 def test_missing_positions(starts, n, missing):
     assert kernel_times.missing_positions(starts, n) == missing
+
+
+def test_backward_and_response_inputs_take_the_pallas_contract():
+    bargs = kernel_times.backward_inputs(3, 4, 5, 2, torch.float64, "cpu", seed=5)
+    A, B, G, Gf, eta, eta_f, regs = bargs
+    assert G.shape == (14, 7) and Gf.shape == (10, 5) and eta.shape == (3, 4, 4, 14)
+    J = lambda xs: [jnp.asarray(x.numpy()) for x in xs]
+    ref = _backward_K_batched(*J((A, B, G, Gf, eta, eta_f)), js.SLSRegs(*J(regs)), b_tile=4,
+                              interpret=True)
+    got = fused_backward.backward_K(*bargs)
+    assert got.shape == (3, 4, 5, 2, 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-10)
+
+    rargs = kernel_times.response_inputs(2, 3, "cpu", seed=6, nx=5, nu=2)
+    assert all(a.dtype == torch.float32 for a in rargs)
+    got = fused_response.fused_response(*rargs)
+    A, B, E, K, *rest = (a.numpy() for a in rargs)
+    for b in range(2):
+        ref = j_fused_response(A[b], B[b], E, K[b], *rest, interpret=True)
+        for g, r in zip(got, ref):
+            r = np.asarray(r).reshape(g[b].shape)
+            assert np.abs(g[b].numpy() - r).max() <= 1e-5 * np.abs(r).max()

@@ -113,8 +113,28 @@ def test_response_paths_agree():
 
 
 def test_fused_response_refuses_what_the_kernel_cannot_hold():
+    # the layout holds no stage: eight warps at the rocket's widths (54,144
+    # bytes), at any N; only constraint blocks past the card's 227 KB are
+    # refused (and widths past 32 by the wrapper)
     A = torch.zeros((1, 80, 17, 17), device="meta")
-    assert tfr.smem_bytes(15, 17, 4, 17, 42, 34) <= tfr.MAX_SMEM_BYTES
-    assert tfr.smem_bytes(100, 17, 4, 17, 42, 34) > tfr.MAX_SMEM_BYTES
+    assert tfr.smem_bytes(17, 4, 17, 42, 34, warps=8) == 54144
+    assert tfr.smem_bytes(32, 4, 32, 2 * 36, 64, warps=8) <= tfr.MAX_SMEM_BYTES
+    assert tfr.smem_bytes(17, 4, 17, 2500, 34) > tfr.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="unsupported device"):
         tfr.fused_response(A, *([None] * 9))
+
+
+@pytest.mark.parametrize("nx,nu", [(4, 1), (13, 4)], ids=["pendulum", "quadrotor"])
+def test_plain_fused_response_matches_pallas_at_model_widths(nx, nu):
+    """The twin against the Pallas kernel (interpret mode) at the widths of
+    the card's pendulum and quadrotor instantiations (nw = nx, ni = 2 (nx +
+    nu), ni_f = 2 nx), two lanes, N = 3; both float32, so 1e-5 relative."""
+    from robust_nonlinear_mpc_torch.tools.kernel_times import response_inputs
+
+    args = response_inputs(2, 3, "cpu", seed=nx, nx=nx, nu=nu)
+    got = tfr.fused_response(*args)
+    A, B, E, K, *rest = (a.numpy() for a in args)
+    for b in range(2):
+        ref = j_fused_response(A[b], B[b], E, K[b], *rest, interpret=True)
+        for name, g, r in zip(NAMES, got, ref):
+            assert _rel(g[b].numpy(), np.asarray(r).reshape(g[b].shape)) <= 1e-5, name
