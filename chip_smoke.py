@@ -44,14 +44,43 @@ before the result lines):
      with its stage breakdown and device busy share after its first run;
   8. the bench twin with sls_block = -1 from the same seed, once, with its
      stage breakdown and busy share: the third path (K3), which must launch
-     in the timed steps.
-Every launch counter is zeroed just before each bench run and read just
-after it. The last lines are the kernels record, the nvidia-smi line and
-{"ok": true, "device": {...}}.
+     in the timed steps. Each bench run's B = 1 latency loop is cut to 50
+     steps (the twin alone runs 200);
+  9. guarantee mode, the until-convergence closed loop: (a) the rocket at
+     N = 6, B = 8, float64, 2 steps, until the SCP criterion 1e-3 (at most
+     40 SCP iterations), with feasibility restoration, stall damping 0.5
+     after 5 SCP iterations and the soft fallback, kkt="fused"
+     on the card (K1/K2) against the CPU (plain versions): identical
+     success, SCP iterations, scp_failed and QP iterations on every lane,
+     X/U and the finite backoffs within 1e-8, for build_batched_closed_loop
+     and for build_chunked_converged_loop at scp_per_dispatch 1 and 5;
+     (b) the full-mitigation Monte-Carlo validation of the rocket
+     (main_monte_carlo_validation --converged --soft-fallback --restoration
+     --max-iter-scp 40 --qp-tol 1e-5 --stall-damping 0.5 --kkt fused),
+     float32, N = 15, B = 128 lanes from seed 0, T = 3 steps (the published
+     run has T = 10; 3 is the least at which the violation count checks a
+     state the controller produced): the guarantee
+     n_violation_steps_on_success == 0 over a check that covers closed-loop
+     states, tube containment 1 on successful solves, K1/K2 launched,
+     seconds of the seed, of each step and of every stage (each
+     synchronized at its ends), the success flags against the published
+     run's first 3 steps, and the device busy share of the last step's
+     first SCP round (profiler). Phase 9b runs in a second process, started
+     first (its seed needs no kernel), while this one builds and runs the
+     untimed phases 4, 5 and 9a, so its seconds are contended; phases 3 and
+     6-8, which time, run after it, alone on the card.
+     `--guarantee-alone steps|stages` runs phase 9b alone (after the build),
+     with the seed and steps timed or every stage timed.
+Every launch counter is zeroed just before each bench run and before phase
+9b (in its own process), and read just after. The last lines are the
+kernels record, the nvidia-smi line and {"ok": true, "device": {...}}.
+`--phases 9` runs a subset (phases 1 and 2 always run) and then prints
+neither result line; so does `--guarantee-alone`.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -68,7 +97,11 @@ from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import (
 from robust_nonlinear_mpc_torch.ops import cuda_lib, fused_backward, fused_qp, fused_response
 from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions, QPData, solve_qp
 from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_blocked
-from robust_nonlinear_mpc_torch.sim.closed_loop import make_mpc_step
+from robust_nonlinear_mpc_torch.sim.closed_loop import (
+    build_batched_closed_loop,
+    build_chunked_converged_loop,
+    make_mpc_step,
+)
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
 from robust_nonlinear_mpc_torch.tools.kernel_times import (
@@ -83,6 +116,7 @@ from robust_nonlinear_mpc_torch.tools.kernel_times import (
     response_inputs,
 )
 from robust_nonlinear_mpc_torch.utils.batch import tree_map
+from robust_nonlinear_mpc_torch.utils.hardware import PEAK_BYTES, PEAK_FLOPS
 
 OUT_DIR = Path("chiprun_out")
 TPU_SOURCE = "robust_nonlinear_mpc_tpu/ops/pallas_qp.py"
@@ -101,9 +135,9 @@ SOURCES = {
     "backward_K": "robust_nonlinear_mpc_torch/csrc/fused_backward.cu",
 }
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, CUDA-core FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# the B = 1 latency loop of each bench run here (the bench twin alone runs
+# the reference's 200 steps): cut to keep the script inside its time limit
+LATENCY_STEPS = 50
 
 
 _START = time.perf_counter()
@@ -521,7 +555,7 @@ def run_bench(label, wl):
     after."""
     bench.reset_launch_counts()
     t0 = time.perf_counter()
-    record, carry = bench.run(wl)
+    record, carry = bench.run(wl, n_lat=LATENCY_STEPS)
     launches = bench.launch_counts()
     say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
         f"sls_block={record['sls_block']} "
@@ -577,29 +611,308 @@ def bench_phases(wls):
     return launches
 
 
-def main():
+def converged_options(opts):
+    """Phase 9a's guarantee-mode options: until convergence (the published
+    criterion 1e-3 and budget of 40 SCP iterations), restoration, stall
+    damping 0.5 after 5 SCP iterations, the soft fallback, the fused Newton
+    kernels, and the SQP seed at tolerance 1e-6 (ROADMAP.md section 3)."""
+    return opts._replace(
+        verbose=False, rti=-1, fast_sls_rti_steps=0, epsilon_convergence=1e-3,
+        max_iter_scp=40, ipm=IPMOptions(max_iter=30, tol=1e-9, kkt="fused"),
+        feasibility_restoration=True, scp_stall_damping=0.5, stall_damping_after=5,
+        nominal_soft_fallback=True,
+        sqp=opts.sqp._replace(tol_step=1e-6, tol_feas=1e-6),
+    )
+
+
+def compare_logs(label, got, ref, tol=1e-8):
+    """Identical success, SCP iterations, scp_failed and QP iterations on
+    every lane; X/U and the finite backoffs within tol, NaN where ref has
+    NaN. Returns the largest difference."""
+    for f in ("success", "scp_iters", "scp_failed", "qp_iters"):
+        a, b = getattr(got, f).cpu(), getattr(ref, f).cpu()
+        if not torch.equal(a, b):
+            fail(f"[{label}] {f} differs on {int((a != b).sum())} lane-steps")
+    worst = 0.0
+    for f in ("nominal_x", "nominal_u", "state_trajectory", "backoff_x", "backoff_u"):
+        a, b = getattr(got, f).cpu(), getattr(ref, f).cpu()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"[{label}] {f}: the NaN pattern differs")
+        d = torch.nan_to_num(a - b).abs().max()
+        worst = max(worst, float(d))
+    if worst > tol:
+        fail(f"[{label}] trajectories or backoffs differ by {worst:.3e} > {tol:g}")
+    return worst
+
+
+def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunked=(1, 5),
+                    ref_lanes=None):
+    """Phase 9a: the until-convergence closed loop with every mitigation,
+    devices[0] (the kernels) against devices[1] (the plain versions), from
+    the same draws (x0 spread 0.05 around X0, w in [-1, 1]). `ref_lanes`:
+    the reference runs only the first lanes (each lane's result does not
+    depend on the others in its batch)."""
+    dtype = torch.float64
+    solvers = {}
+    for device in devices:
+        m, solver = make_rocket_problem(N=N, device=device, dtype=dtype)
+        solver.opts = converged_options(solver.opts)
+        solvers[device] = solver
+    rng = np.random.default_rng(seed)
+    x0s = np.array(X0)[None] + 0.05 * rng.standard_normal((Bsz, NX))
+    Ws = 2 * rng.random((Bsz, steps, NX)) - 1
+    card, host = devices
+    restored = []
+    restore = solvers[card]._restore
+
+    def counting(*a):
+        out = restore(*a)
+        restored.append(int(out[2].sum()))
+        return out
+
+    solvers[card]._restore = counting
+    fused_qp.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = build_batched_closed_loop(solvers[card], steps)(x0s, Ws)
+    t_card = time.perf_counter() - t0
+    launches = fused_qp.launch_counts()
+    t0 = time.perf_counter()
+    ref = build_batched_closed_loop(solvers[host], steps)(x0s[:ref_lanes], Ws[:ref_lanes])
+    t_host = time.perf_counter() - t0
+    lanes = lambda log: type(log)(*(t[:ref_lanes] for t in log))
+    if card == "cuda" and min(launches["factor_predictor"], launches["resolve"]) <= 0:
+        fail(f"[9a] the converged loop on the card did not launch K1/K2: {launches}")
+    worst = compare_logs("9a batched", lanes(got), ref)
+    shown = lanes(got)
+    say(f"[9a] converged rocket N={N} B={Bsz} f64 {steps} steps, {card} {t_card:.1f} s "
+        f"against {host} {t_host:.1f} s on {ref.success.shape[0]} lanes: success "
+        f"{shown.success.tolist()}, SCP iterations {shown.scp_iters.tolist()} (max of all "
+        f"{int(got.scp_iters.max())}), scp_failed {int(got.scp_failed.sum())}, QP iterations "
+        f"{shown.qp_iters.tolist()}, restored lane-iterations {sum(restored)}, max |diff| "
+        f"{worst:.2e}, launches {launches}")
+    for kpd in chunked:
+        t0 = time.perf_counter()
+        ch = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd)(x0s, Ws)
+        worst = compare_logs(f"9a chunked {kpd}", lanes(ch), ref)
+        say(f"[9a] chunked scp_per_dispatch={kpd} on {card} ({time.perf_counter() - t0:.1f} s) "
+            f"against the {host} batched loop: max |diff| {worst:.2e}")
+
+
+GUARANTEE_FLAGS = dict(converged=True, soft_fallback=True, restoration=True, max_iter_scp=40,
+                       qp_tol=1e-5, stall_damping=0.5, kkt="fused")
+PUBLISHED_RUN = Path("artifacts/mc_validation_rocket_converged_tpu_f32_128_fullmit_r5.npz")
+
+
+def profile_round(solver, st, x):
+    """One SCP iteration of every lane (`solver._iteration`) from a step's
+    entry state `st` (a `sim.closed_loop._ConvState`) at plant state x, as
+    the step's first SCP round runs it, on the host clock and again under the
+    profiler (CUDA activity only): its ms, the device kernel ms and their
+    ratio, the device busy share of a full-batch round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one_round():
+        solver._iteration(st.X, st.U, x, st.persist)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    round_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_round()
+    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA) / 1e3
+    return {"round_ms": round_ms, "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / round_ms}
+
+
+def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
+    """Phase 9b: the published full-mitigation converged Monte-Carlo
+    validation of the rocket on the card (float32, N = 15), through the
+    driver a user runs, with T cut from 10 to 3. The violation count checks
+    (x_t, u_t) for t < T - 1 and x_0 is the draw, so T = 3 is the least at
+    which it checks a state the controller produced (x_1); the tube
+    containment checks x_1 and x_2. Fails unless K1/K2 launched, no
+    successful step violates a constraint, the count covered a closed-loop
+    state, and every successful step's tube contains the next state. Times
+    the seed and each step (`utils.stages`: "seed" and "step" only, which
+    synchronize the card once at each end; with `stages` every stage, each
+    synchronized at its ends), and the busy share of the last step's first
+    SCP round. Writes its record to chiprun_out/`out` and returns it."""
+    from robust_nonlinear_mpc_torch.expe import main_monte_carlo_validation as mc
+    from robust_nonlinear_mpc_torch.sim import closed_loop as cl
+    from robust_nonlinear_mpc_torch.utils.stages import timed
+
+    mc.FOLDER = str(OUT_DIR / "monte_carlo_validation")
+    entry = {}
+    until_converged = cl._scp_until_converged
+
+    def keep_entry(solver, st, x):
+        # the entry state of the latest step, profiled again after the run
+        entry.update(solver=solver, st=st, x=x)
+        return until_converged(solver, st, x)
+
+    cl._scp_until_converged = keep_entry
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with timed(None if stages else ("seed", "step")) as rec:
+            path = mc.generate("rocket", scenarios=B, steps=T, device="cuda", seed=0,
+                               **GUARANTEE_FLAGS)
+    finally:
+        cl._scp_until_converged = until_converged
+    wall = time.perf_counter() - t0
+    launches = bench.launch_counts()
+    r = np.load(path, allow_pickle=True)
+    keys = ("success_rate", "n_violation_steps_on_success", "n_violation_steps",
+            "tube_containment_rate", "worst_tube_margin", "n_failed_inner",
+            "n_failed_unconverged", "n_failed_scenarios", "mean_cost")
+    res = {k: r[k].item() for k in keys}
+    succ = r["success_mask"].astype(bool)
+    # the lane-steps the violation count covers: solve t succeeded and solve
+    # t - 1 (which predicted the tube around x_t) too, for t < T - 1
+    covered = succ[:, :-1] & np.concatenate([np.ones((B, 1), bool), succ[:, : T - 2]], axis=1)
+    scp = r["scp_iters"]
+    step_s = rec["step"]
+    res.update(
+        B=B, T=T, seconds=wall, stages_timed=stages, seed_s=sum(rec["seed"]), step_s=step_s,
+        s_per_step=float(np.mean(step_s)), launches=launches,
+        violation_lane_steps_checked=int(covered.sum()),
+        closed_loop_lane_steps_checked=int(covered[:, 1:].sum()),
+        scp_iters_mean=float(scp.mean()), scp_iters_max=int(scp.max()),
+        scp_lane_iterations=int(scp.sum()),
+    )
+    if stages:
+        res.update(stages_s={k: sum(v) for k, v in rec.items()},
+                   stage_calls={k: len(v) for k, v in rec.items()})
+    say(f"[9b] rocket full mitigation B={B} T={T} f32 on the card in {wall:.1f} s "
+        f"(seed {res['seed_s']:.1f} s, steps {[round(v, 2) for v in step_s]} s, "
+        f"{'every stage' if stages else 'seed and steps'} timed): "
+        + json.dumps({k: res[k] for k in keys})
+        + f", violation check over {res['violation_lane_steps_checked']} lane-steps "
+        f"({res['closed_loop_lane_steps_checked']} at a closed-loop state), SCP iterations "
+        f"mean {res['scp_iters_mean']:.2f} max {res['scp_iters_max']}, launches {launches}")
+    if stages:
+        say("[9b] stage s (calls): " + ", ".join(
+            f"{k} {v:.2f} ({res['stage_calls'][k]})" for k, v in res["stages_s"].items()))
+    if min(launches["factor_predictor"], launches["resolve"]) <= 0:
+        fail(f"[9b] the guarantee run did not launch K1/K2: {launches}")
+    if res["n_violation_steps_on_success"] != 0:
+        fail(f"[9b] {res['n_violation_steps_on_success']} violation steps on successful solves")
+    if res["closed_loop_lane_steps_checked"] <= 0:
+        fail("[9b] the violation check covered no state the closed loop produced")
+    if not res["tube_containment_rate"] == 1.0:
+        fail(f"[9b] tube containment on successful solves {res['tube_containment_rate']} < 1")
+    if PUBLISHED_RUN.is_file():
+        pub = np.load(PUBLISHED_RUN, allow_pickle=True)["success_mask"][:B, :T]
+        res["success_flags_differing_from_published"] = int((pub != succ).sum())
+        say(f"[9b] success flags of the first {T} steps that differ from {PUBLISHED_RUN.name}: "
+            f"{res['success_flags_differing_from_published']} of {pub.size} (same draws; "
+            "the published run is float32 on a TPU)")
+    res["first_round"] = profile_round(entry["solver"], entry["st"], entry["x"])
+    fr = res["first_round"]
+    say(f"[9b] step {T - 1}'s first SCP round at B={B}: {fr['round_ms']:.1f} ms, device "
+        f"kernels {fr['device_kernel_ms']:.1f} ms, busy share {fr['device_busy_share']:.4f}")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out).write_text(json.dumps(res, indent=1))
+    return res
+
+
+def start_guarantee_worker():
+    """Phase 9b in a process of its own (`--guarantee-worker`), which runs
+    while this one does the untimed phases (4, the bench seed, 5, 9a): the
+    card idles most of the time in both. Its output goes to a log file."""
+    import subprocess
+
+    OUT_DIR.mkdir(exist_ok=True)
+    log = open(OUT_DIR / "chip_smoke_9b.log", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--guarantee-worker"],
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def join_guarantee_worker(proc, log, timeout=900):
+    """Wait for the worker, echo its lines, fail if it failed."""
+    import subprocess
+
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    log.close()
+    for line in (OUT_DIR / "chip_smoke_9b.log").read_text().splitlines():
+        if line.startswith(("[9b]", "[mc]", "chip_smoke FAILED", "Traceback")) or "Error" in line:
+            print(line, flush=True)
+    if rc != 0:
+        fail(f"phase 9b's worker ended with {rc} (see {OUT_DIR / 'chip_smoke_9b.log'})")
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated subset of 3-9 to run after phases 1-2 (default: all)")
+    ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
+                    help="run only phase 9b, alone on the card after the build, with the "
+                         "seed and the steps timed or every stage timed; no result lines")
+    ap.add_argument("--guarantee-worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    if args.guarantee_worker:
+        # the seed needs no kernel; the first K1 launch loads the extension
+        # that the main process builds meanwhile
+        guarantee_mode(stages=True)
+        return 0
+    if args.guarantee_alone:
+        say(f"[1] device {torch.cuda.get_device_name(0)}, nvidia-smi: {bench.gpu_identity()[2]}")
+        cuda_lib.build_extension()
+        guarantee_mode(stages=args.guarantee_alone == "stages",
+                       out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
+        return 0
+    run = set(range(3, 10)) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
     name, limit_w, smi_line = bench.gpu_identity()
     kind = torch.cuda.get_device_name(0)
     say(f"[1] device {kind} (count {torch.cuda.device_count()}), nvidia-smi: {smi_line}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     bench.require_cuda()
 
-    t0 = time.perf_counter()
-    cuda_lib.build_extension(verbose=True)
-    say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
-        f"in {time.perf_counter() - t0:.1f} s")
-
-    report_occupancy()
-    main_err = check_kernels()
-    times = time_kernels()
-    check_solve_qp()
-    check_fused_iter()
-    wls = bench_workloads()
-    check_closed_loop(wls["6"])
-
-    launches = bench_phases(wls)
+    worker = start_guarantee_worker() if 9 in run else None
+    try:
+        t0 = time.perf_counter()
+        cuda_lib.build_extension(verbose=True)
+        say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
+            f"in {time.perf_counter() - t0:.1f} s")
+        # untimed phases, beside the worker; the CPU references leave it a core
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads - 2))
+        if 4 in run:
+            check_solve_qp()
+            check_fused_iter()
+        if run & {5, 6, 7, 8}:
+            wls = bench_workloads()
+        if 5 in run:
+            check_closed_loop(wls["6"])
+        if 9 in run:
+            check_converged()
+            join_guarantee_worker(*worker)
+        torch.set_num_threads(threads)
+        # timed phases, alone on the card
+        if 3 in run:
+            report_occupancy()
+            main_err = check_kernels()
+            times = time_kernels()
+        if run & {6, 7, 8}:
+            launches = bench_phases(wls)
+    finally:
+        if worker is not None and worker[0].poll() is None:
+            worker[0].kill()
+            worker[0].wait()
+    if run != set(range(3, 10)):
+        say(f"partial run (phases 1, 2 and {sorted(run)}): no result lines")
+        return 0
 
     kernels = []
     for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response", "backward_K"):
@@ -614,6 +927,7 @@ def main():
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

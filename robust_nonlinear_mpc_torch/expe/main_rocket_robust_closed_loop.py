@@ -1,17 +1,26 @@
-"""Rocket ("rockETH") robust closed loop: the problem setup of the headline
-RTI configuration (port of `X0` and `make_rocket_problem` from
-`robust_nonlinear_mpc_tpu/expe/main_rocket_robust_closed_loop.py`).
+"""Rocket ("rockETH") robust closed loop, the headline RTI configuration
+(port of `robust_nonlinear_mpc_tpu/expe/main_rocket_robust_closed_loop.py`,
+`--run` only).
 
 N = 15, Q = diag(10,10,10, 1x3, 1x4, 1,5,5, 1x4), R = I4, Qf = 10 Q,
-regularizers 1e4 I, rti = 1, fast_sls_rti_steps = 1, E = dt * diag(...).
+regularizers 1e4 I, rti = 1, fast_sls_rti_steps = 1, E = dt * diag(...),
+the hardcoded 17-dim x0, 30 steps with uniform noise x+ = f(x, u) + E w,
+w ~ U[-1, 1]^nx from RandomState(0), float64.
+
+Usage:  python -m robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop --run
+            [--N 15] [--steps 30] [--device cuda|cpu]
 """
 
 from __future__ import annotations
+
+import argparse
 
 import numpy as np
 import torch
 
 from robust_nonlinear_mpc_torch.utils.device import checked_device
+
+FOLDER = "rockETH_robust_closed_loop"
 
 X0 = [
     1.75729, 4.15951, 4.72757,
@@ -59,3 +68,25 @@ def make_rocket_problem(N=15, device="cuda", dtype=torch.float64):
         dtype=dtype, device=device,
     )
     return m, solver
+
+
+def generate(N: int | None = None, sim_steps: int = 30, device="cuda"):
+    from robust_nonlinear_mpc_torch.expe._common import save_results
+    from robust_nonlinear_mpc_torch.sim.closed_loop import run_closed_loop
+
+    np.random.seed(0)
+    m, solver = make_rocket_problem(int(N) if N is not None else 15, device=device)
+    results = run_closed_loop(m, solver, np.array(X0), sim_steps, noise="uniform",
+                              rng=np.random.RandomState(0), verbose=True)
+    return save_results(FOLDER, "rockETH_robust_closed_loop", results)
+
+
+if __name__ == "__main__":
+    p = argparse.ArgumentParser()
+    p.add_argument("--run", action="store_true", required=True,
+                   help="generate and save a run (plotting is not ported)")
+    p.add_argument("--N", type=int, default=None)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args()
+    generate(args.N, args.steps, device=args.device)

@@ -57,26 +57,40 @@ def _scp_options(d) -> SCPSLSOptions:
     return SCPSLSOptions(**d)
 
 
+MODELS = ("rocket", "pendulum", "quadrotor")
+
+
+def model_from_name(name, *, device="cuda", dtype=torch.float64):
+    """The port's model of that name, on the card unless `device` says
+    otherwise."""
+    if name == "rocket":
+        from robust_nonlinear_mpc_torch.models.rocket import Rocket as cls
+    elif name == "pendulum":
+        from robust_nonlinear_mpc_torch.models.pendulum import Pendulum as cls
+    elif name == "quadrotor":
+        from robust_nonlinear_mpc_torch.models.quadrotor import Quadrotor as cls
+    else:
+        raise ValueError(f"model must be one of {MODELS}, got {name!r}")
+    return cls(dtype=dtype, device=device)
+
+
 def solver_from_numpy(d, *, device="cuda", dtype=torch.float64) -> SCPSLSSolver:
     """Build the port's solver from the values of a JAX `SCPSLSSolver`.
 
     `d` holds "N", "Q", "R", "Qf", "Q_reg", "R_reg", "Q_reg_f", the model's
-    "E" and "dt", and "options" (`options_to_plain(solver.opts)`). The model
-    is the rocket, the one model the port has. On the card unless `device`
-    says otherwise.
+    "E" and "dt", optionally its "g" and "gf" (a replaced box), "model" (one
+    of `MODELS`, the rocket by default) and "options"
+    (`options_to_plain(solver.opts)`). On the card unless `device` says
+    otherwise.
     """
-    from robust_nonlinear_mpc_torch.models.rocket import Rocket
-
     device = checked_device(device)
-
-    model = d.get("model", "rocket")
-    if model != "rocket":
-        raise NotImplementedError(
-            f"model {model!r} is not ported: ROADMAP.md Open items 1.9"
-        )
-    m = Rocket(dtype=dtype, device=device)
+    m = model_from_name(d.get("model", "rocket"), device=device, dtype=dtype)
     m.dt = float(d["dt"])
-    m.E = torch.as_tensor(np.asarray(d["E"], float), dtype=dtype, device=device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=device)
+    m.E = as_t(d["E"])
+    for name in ("g", "gf"):
+        if name in d:
+            setattr(m, name, as_t(d[name]))
     opts = _scp_options(d["options"])
     return SCPSLSSolver(
         int(d["N"]), d["Q"], d["R"], m, d["Qf"],

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.func import jvp, vmap
+from torch.func import jacfwd, jvp, vmap
 
 
 class Model(nn.Module):
@@ -52,6 +52,11 @@ class Model(nn.Module):
         k4 = self.ode(x + h * k3, u)
         return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
+    def linearize(self, x: torch.Tensor, u: torch.Tensor):
+        """(A, B) = (df/dx, df/du) of the discrete dynamics at one point
+        x (nx,), u (nu,)."""
+        return jacfwd(self.ddyn, argnums=(0, 1))(x, u)
+
     def linearize_traj(self, X: torch.Tensor, U: torch.Tensor):
         """Linearization along trajectories.
 
@@ -73,6 +78,16 @@ class Model(nn.Module):
         A, B = J[..., :nx], J[..., nx:]
         c = f.reshape(lead + (N, nx)) - X[..., 1 : N + 1, :]
         return A.reshape(lead + (N, nx, nx)), B.reshape(lead + (N, nx, nu)), c
+
+    def remove_constraints(self) -> None:
+        """Drop every stage and terminal constraint (ni = ni_f = 0)."""
+        z = lambda *s: torch.zeros(s, dtype=self.G.dtype, device=self.G.device)
+        self.G = z(0, self.nx + self.nu)
+        self.g = z(0)
+        self.Gf = z(0, self.nx)
+        self.gf = z(0)
+        self.ni = 0
+        self.ni_f = 0
 
 
 def box_polytope(x_ub, x_lb, u_ub, u_lb):

@@ -49,6 +49,7 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     tube_cost,
 )
 from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where, tree_where
+from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
 class SLSProblem(NamedTuple):
@@ -180,7 +181,8 @@ def select_sls_kernels(block: int):
     triangular column-blocked ones with stage segments of `block`; block = -1:
     the hand-written backward kernel (`ops/fused_backward.backward_K`, the
     counterpart of the Pallas `_backward_kernel`; K only, S is None) with the
-    column-blocked response at block 2. Each backward returns (S, K)."""
+    column-blocked response at block 2; any other block, as in the JAX
+    package, the folded ones. Each backward returns (S, K)."""
     if block == -1:
         def backward(A, B, Gmat, Gf, eta, eta_f, regs):
             return None, backward_K(A, B, Gmat, Gf, eta, eta_f, regs)
@@ -189,14 +191,14 @@ def select_sls_kernels(block: int):
     if block > 0:
         return (functools.partial(backward_solve_blocked, block=block),
                 functools.partial(response_streaming_blocked, block=block))
-    if block == 0:
-        return backward_solve_folded, response_streaming_folded
-    raise ValueError(f"sls_block must be -1, 0 or positive, got {block}")
+    return backward_solve_folded, response_streaming_folded
 
 
 def _check_options(opts: FastSLSOptions):
     if opts.column_mesh is not None:
-        raise NotImplementedError("column sharding is not ported: ROADMAP.md Open items 1.11")
+        raise NotImplementedError(
+            "column sharding is not ported: ROADMAP.md Open items, queue 1 item 6 (parallel)"
+        )
 
 
 def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x, phi_like_u):
@@ -300,8 +302,9 @@ def fast_sls_solve(
         data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - applied,
                       hf=gf_res - applied_f, xinit=xinit_dev)
         use_first = first and opts.ipm_first is not None
-        return solve_qp(prob.stat, data, opts.ipm_first if use_first else opts.ipm,
-                        init=init, max_iter_dyn=None if use_first else budget)
+        with stage("sls.qp"):
+            return solve_qp(prob.stat, data, opts.ipm_first if use_first else opts.ipm,
+                            init=init, max_iter_dyn=None if use_first else budget)
 
     def warm_init():
         w = persist.qp_warm
@@ -330,10 +333,12 @@ def fast_sls_solve(
 
     if opts.recycle_eta:
         # dual-recycling RTI: K from the persisted eta, one tightened QP
-        K_r = bwd_solve(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1]
-        Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
-            prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
-        )
+        with stage("sls.backward"):
+            K_r = bwd_solve(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1]
+        with stage("sls.response"):
+            Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
+                prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
+            )
         sol = forward(nboff, nboff_f, init=warm_init() if opts.recycle_warm_qp else None)
         y = pack_primal(sol.X, sol.U)
         conv = persist.have_prev & (lane_max_abs(y - persist.prev_primal) <= opts.conv_tol)
@@ -384,10 +389,12 @@ def fast_sls_solve(
         """eta -> backward Riccati -> response -> retighten."""
         sol = carry.sol
         eta, eta_f = evaluate_dual_eta(sol.lam, sol.lam_f, carry.beta, carry.beta_f, eps)
-        K = bwd_solve(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)[1]
-        Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
-            prob, A, B, K, opts, carry.Phi_x, carry.Phi_u
-        )
+        with stage("sls.backward"):
+            K = bwd_solve(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)[1]
+        with stage("sls.response"):
+            Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
+                prob, A, B, K, opts, carry.Phi_x, carry.Phi_u
+            )
         backoff_x, backoff_u = _backoff_xu(nboff, nboff_f, nx, nu)
         return carry._replace(
             eta=eta, eta_f=eta_f, K=K, Phi_x=Phi_x, Phi_u=Phi_u,

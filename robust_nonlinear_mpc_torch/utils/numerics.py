@@ -41,7 +41,8 @@ def _inv2(M: torch.Tensor) -> torch.Tensor:
 
 def spd_solve_small(H: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     """Solve H X = F for small SPD H: closed-form blockwise-Schur inverse for
-    n <= 4 (n = 3 is padded to 4 with an identity corner), Cholesky above."""
+    n <= 4 (n = 3 is padded to 4 with an identity corner), Cholesky above
+    (NaN for a lane whose H is not positive definite)."""
     n = H.shape[-1]
     if n == 1:
         return F / H[..., :1, :1]
@@ -69,7 +70,10 @@ def spd_solve_small(H: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
             [torch.cat([TL, TR], dim=-1), torch.cat([BL, iSc], dim=-1)], dim=-2
         )
         return Hi @ F
-    L = torch.linalg.cholesky(H)
+    # a matrix that is not positive definite (or not finite) gives NaN for
+    # its lane, as jnp.linalg.cholesky does, instead of raising for the batch
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
     return torch.cholesky_solve(F, L)
 
 

@@ -6,7 +6,9 @@ horizon (the Newton kernels also at narrow inputs), at a batch that leaves
 the last wave part-filled and at the other models' widths and the general
 (runtime-width) path; the response kernel (float32 only) and the SLS
 backward kernel at the main path's shape, a ragged batch, a long horizon,
-the same edges (K3 also at narrow inputs).
+the same edges (K3 also at narrow inputs); the until-convergence closed
+loop with every mitigation (chip_smoke phase 9a) on the card at B = 529 for
+one step against the CPU on its first 16 lanes.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -121,3 +123,9 @@ def test_cuda_launches_are_counted(smoke):
     smoke.compare_backward(3, 5, 2, torch.float64)
     assert bench.launch_counts() == {"factor_predictor": 1, "resolve": 1, "ipm_iteration": 1,
                                      "fused_response": 1, "backward_K": 1}
+
+
+def test_converged_closed_loop_card_matches_cpu(smoke):
+    # identical success, SCP, QP iterations and scp_failed; X/U and the
+    # finite backoffs within 1e-8 (check_converged fails otherwise)
+    smoke.check_converged(Bsz=529, steps=1, chunked=(), ref_lanes=16)

@@ -21,6 +21,11 @@ def test_port_has_sources():
                  "newton.cuh"):
         assert (PORT / "csrc" / name).is_file(), name
     assert PORT / "tools" / "fused_bwd_bench.py" in SOURCES
+    for rel in ("solvers/restoration.py", "models/pendulum.py", "models/quadrotor.py",
+                "parallel/mc.py", "sim/io.py", "expe/_common.py",
+                "expe/main_monte_carlo_validation.py", "expe/main_pendulum_robust_closed_loop.py",
+                "expe/main_quadrotor_robust_closed_loop.py"):
+        assert PORT / rel in SOURCES, rel
 
 
 def test_kernel_sources_are_the_ones_built():
