@@ -37,14 +37,19 @@ before the result lines):
      sls_block = 0 (the folded torch backward), checked the same way;
   6. the bench twin (robust_nonlinear_mpc_torch.bench) at its full
      configuration (the folded SLS kernels, sls_block = 0): the main path
-     (K1, K2);
+     (K1, K2), run as the step captured in one CUDA graph
+     (sim.closed_loop.capture_mpc_step), at B = 512 and at B = 1, with
+     on_device_step_ms from captured K = 1 and K = 8 step programs, and the
+     eager step from the last timed replay's input, which must give the
+     same success and QP iterations;
   7. the bench twin in the fused-kernel configuration (kkt="fused_iter",
      response="fused"): the second path (K6, K4). Both configurations start
      from one SQP seed and run twice, default, fused, fused, default, each
-     with its stage breakdown and device busy share after its first run;
+     with its stage breakdown (the eager step) and the device busy share of
+     the eager and of the captured step after its first run;
   8. the bench twin with sls_block = -1 from the same seed, once, with its
-     stage breakdown and busy share: the third path (K3), which must launch
-     in the timed steps. Each bench run's B = 1 latency loop is cut to 50
+     stage breakdown and busy shares: the third path (K3), which must launch
+     in the timed replays. Each bench run's B = 1 latency loop is cut to 50
      steps (the twin alone runs 200);
   9. guarantee mode, the until-convergence closed loop: (a) the rocket at
      N = 6, B = 8, float64, 2 steps, until the SCP criterion 1e-3 (at most
@@ -70,12 +75,30 @@ before the result lines):
      untimed phases 4, 5 and 9a, so its seconds are contended; phases 3 and
      6-8, which time, run after it, alone on the card.
      `--guarantee-alone steps|stages` runs phase 9b alone (after the build),
-     with the seed and steps timed or every stage timed.
+     with the seed and steps timed or every stage timed;
+ 10. the RTI step captured as one CUDA graph against the eager step on the
+     card (run after phase 5, among the untimed phases): (a) B = 512,
+     N = 15, float32, 3 steps from the bench seed in the default, the
+     fused-kernel and the K3 configuration, each with its kernels in the
+     graph; (b) the default configuration at B = 529; (c) float64, N = 6,
+     B = 8, the captured step on the card against the eager step on the
+     CPU, phase 5's criteria; (d) the captured K = 8 program against 8
+     replays of the one-step graph; (e) build_batched_closed_loop in RTI
+     mode (the reference's two-QP RTI options, kkt="fused", float64, N = 6,
+     B = 8, 3 steps), on the card on the captured step against the CPU,
+     phase 9a's criteria. (a), (b) and (d): identical success,
+     QP and SCP iterations and scp_failed on every lane, the plant state,
+     X, U and the backoffs bit for bit (else within 1e-6 relative, with a
+     line that says so).
 Every launch counter is zeroed just before each bench run and before phase
-9b (in its own process), and read just after. The last lines are the
-kernels record, the nvidia-smi line and {"ok": true, "device": {...}}.
-`--phases 9` runs a subset (phases 1 and 2 always run) and then prints
-neither result line; so does `--guarantee-alone`.
+9b (in its own process), and read just after. A wrapper counts a launch
+recorded into a CUDA graph once, at capture; a replay launches without it,
+so the bench record counts one replay's launches times the replays, and
+the kernels record's `launches` are the first run of each path's timed
+window, counted so. The last lines are the kernels record, the nvidia-smi
+line and {"ok": true, "device": {...}}. `--phases 9` runs a subset (phases
+1 and 2 always run) and then prints neither result line; so does
+`--guarantee-alone`.
 """
 
 from __future__ import annotations
@@ -100,6 +123,7 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import backward_solve_blocked
 from robust_nonlinear_mpc_torch.sim.closed_loop import (
     build_batched_closed_loop,
     build_chunked_converged_loop,
+    capture_mpc_step,
     make_mpc_step,
 )
 from robust_nonlinear_mpc_torch.solvers.fast_sls import FastSLSPersist
@@ -115,7 +139,7 @@ from robust_nonlinear_mpc_torch.tools.kernel_times import (
     newton_inputs,
     response_inputs,
 )
-from robust_nonlinear_mpc_torch.utils.batch import tree_map
+from robust_nonlinear_mpc_torch.utils.batch import tree_leaves, tree_map
 from robust_nonlinear_mpc_torch.utils.hardware import PEAK_BYTES, PEAK_FLOPS
 
 OUT_DIR = Path("chiprun_out")
@@ -482,12 +506,13 @@ def check_fused_iter():
             fail("fused_iter and riccati solutions differ by more than 1e-4")
 
 
-def card_vs_cpu(label, N, Bsz, configure, store_phi, seed, nominal=None):
+def card_vs_cpu(label, N, Bsz, configure, store_phi, seed, nominal=None, captured=False):
     """3 MPC steps from one nominal, the card against the CPU, each with its
     solver options from `configure(opts, device)`: identical success and QP
     iterations, X/U within 1e-8 (float64). The nominal is an SQP solve on
     the card at tolerance 1e-6, or `nominal` = (X, U, x0) of the first Bsz
-    lanes of a bench seed."""
+    lanes of a bench seed. `captured`: the card runs the step captured as a
+    CUDA graph (`capture_mpc_step`), the CPU the eager step."""
     dtype = torch.float64
     runs = {}
     for device in ("cuda", "cpu"):
@@ -515,13 +540,14 @@ def card_vs_cpu(label, N, Bsz, configure, store_phi, seed, nominal=None):
         persist = FastSLSPersist.init(N, NX, NU, m.ni, m.ni_f, NX, batch=Bsz, dtype=dtype,
                                       device=device, store_phi=store_phi)
         carry = (X.to(device), U.to(device), persist, x0s.to(device))
-        step = make_mpc_step(solver)
+        step = (capture_mpc_step(solver, carry) if captured and device == "cuda"
+                else make_mpc_step(solver))
         outs[device] = []
         for i in range(3):
             carry, out = step(carry, to(w[i]))
             outs[device].append(tree_map(lambda t: t.cpu(), out))
     for i, (g, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
-        ok_same = bool((g[6] == c[6]).all()) and bool((g[7] == c[7]).all())
+        ok_same = all(bool((g[j] == c[j]).all()) for j in (6, 7, 8))
         ex = float((g[2] - c[2]).abs().max())
         eu = float((g[3] - c[3]).abs().max())
         say(f"[{label}] step {i}: success {g[6].tolist()} qp iters {g[7].tolist()} "
@@ -549,6 +575,144 @@ def check_closed_loop(seed_wl):
         fail("the two-QP step on the card did not launch backward_K")
 
 
+CAPTURE_OUTS = ("x", "u0", "X", "U", "backoff_x", "backoff_u", "success", "qp_iters",
+                "scp_iters", "scp_failed")
+
+
+def compare_outs(label, got, ref):
+    """The captured step's outs against the eager step's: identical success,
+    QP and SCP iterations and scp_failed on every lane; the plant state, the
+    plan and the backoffs bit for bit (NaN where the other has NaN). Where
+    they are not bit for bit, within 1e-6 relative to each output's max
+    |value|, and the line says so. Returns the largest relative difference."""
+    worst = 0.0
+    for name, a, b in zip(CAPTURE_OUTS, got, ref):
+        if name in ("success", "qp_iters", "scp_iters", "scp_failed"):
+            if not torch.equal(a, b):
+                fail(f"[{label}] {name} differs on {int((a != b).sum())} lanes")
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"[{label}] {name}: the NaN pattern differs")
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        if torch.equal(a, b):
+            continue
+        r, ab = rel_err(a, b)
+        worst = max(worst, r)
+        say(f"[{label}] {name} not bit for bit: max |diff| {ab:.3e}, relative {r:.3e} "
+            "(a library may pick another algorithm under capture)")
+        if not r <= 1e-6:
+            fail(f"[{label}] {name}: captured and eager differ by {r:.3e} relative")
+    return worst
+
+
+def captured_vs_eager(label, wl, carry, w_seq, steps=3):
+    """`steps` replays of the captured step against as many eager steps
+    from the same carry and disturbances; the kernels of the configuration
+    must be in the graph. Frees the graph's pool after."""
+    eager, c = [], carry
+    for i in range(steps):
+        c, out = wl.mpc_step(c, w_seq[i])
+        eager.append(out)
+    t0 = time.perf_counter()
+    step = capture_mpc_step(wl.solver, carry)
+    t_capture = time.perf_counter() - t0
+    worst, c = 0.0, carry
+    for i in range(steps):
+        c, out = step(c, w_seq[i])
+        worst = max(worst, compare_outs(f"{label} step {i}", out, eager[i]))
+    torch.cuda.synchronize()
+    graph_kernels = {k: v for k, v in step.launches.items() if v}
+    say(f"[{label}] B={carry[3].shape[0]} kkt={wl.solver.opts.ipm.kkt} response={wl.response} "
+        f"sls_block={wl.sls_block}: {steps} captured steps equal the eager steps "
+        f"({'bit for bit' if worst == 0.0 else f'max relative {worst:.3e}'}); success "
+        f"{float(out[6].float().mean()):.4f}, mean QP iterations "
+        f"{[round(float(o[7].float().mean()), 3) for o in eager]}; warm-up and capture "
+        f"{t_capture:.1f} s; kernels per replay {graph_kernels}")
+    del step
+    torch.cuda.empty_cache()
+    return graph_kernels
+
+
+def check_capture(wls):
+    """Phase 10: the RTI step captured as one CUDA graph against the eager
+    step on the card. (a) B = 512, N = 15, float32, 3 steps from the bench
+    seed in each configuration: default (K1/K2), fused-kernel (K6/K4) and
+    K3; (b) the default configuration at B = 529 (the seed's 512 lanes and
+    again its first 17), so the last wave of the kernels is part-filled;
+    (c) float64, N = 6, B = 8: the captured step on the card against the
+    eager step on the CPU (plain versions), phase 5's criteria; (d) the
+    captured K = 8 program against 8 replays of the one-step graph; (e)
+    `build_batched_closed_loop` in RTI mode on the captured step against
+    the CPU."""
+    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response"),
+                    "8": ("backward_K",)}
+    for label, kernels in path_kernels.items():
+        wl = wls[label]
+        in_graph = captured_vs_eager(f"10a {label}", wl, wl.carry, wl.w_seq)
+        if not all(k in in_graph for k in kernels):
+            fail(f"[10a {label}] the captured step holds no launch of {kernels}: {in_graph}")
+    wl = wls["6"]
+    X, U, _, x0s = wl.carry
+    more = lambda t: torch.cat([t, t[:17]])
+    m = wl.m
+    persist = FastSLSPersist.init(wl.solver.N, m.nx, m.nu, m.ni, m.ni_f, m.nw, batch=529,
+                                  dtype=wl.dtype, device=wl.device, store_phi=False)
+    captured_vs_eager("10b", wl, (more(X), more(U), persist, more(x0s)),
+                      torch.cat([wl.w_seq[:3], wl.w_seq[:3, :17]], dim=1))
+    card_vs_cpu("10c", 6, 8, lambda opts, device: opts._replace(
+        verbose=False, ipm=IPMOptions(max_iter=15, tol=3e-5, kkt="fused"),
+        adaptive_ipm_budget=(6, 15), streaming_response=True,
+        recycle_eta=True, recycle_warm_qp=True,
+    ), store_phi=False, seed=0, captured=True)
+    # (d) K = 8 in one graph against 8 replays of the one-step graph
+    K = 8
+    one = capture_mpc_step(wl.solver, wl.carry)
+    prog = capture_mpc_step(wl.solver, wl.carry, steps=K)
+    c, singles = wl.carry, []
+    for i in range(K):
+        c, out = one(c, wl.w_seq[i])
+        singles.append(tree_map(torch.clone, out))
+    c_single = tree_map(torch.clone, c)
+    c_prog, outs = prog(wl.carry, wl.w_seq[:K])
+    for i in range(K):
+        compare_outs(f"10d step {i}", tuple(o[i] for o in outs), singles[i])
+    for a, b in zip(tree_leaves(c_prog), tree_leaves(c_single)):
+        if not torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)):
+            fail("[10d] the K = 8 program's carry differs from 8 single replays'")
+    say(f"[10d] the captured K = {K} program equals {K} replays of the one-step graph "
+        f"(outs and carry), kernels per replay {prog.launches}")
+    del one, prog
+    torch.cuda.empty_cache()
+    check_rti_closed_loop()
+
+
+def check_rti_closed_loop(Bsz=8, N=6, steps=3, seed=0, devices=("cuda", "cpu")):
+    """Phase 10e: `build_batched_closed_loop` in RTI mode with the
+    reference's two-QP RTI options (what the Monte-Carlo validation's RTI
+    rows run), kkt="fused", float64, SQP seed at tolerance 1e-6: on the
+    card its steps are replays of the captured step, on the CPU eager steps
+    (plain versions); phase 9a's criteria (`compare_logs`)."""
+    rng = np.random.default_rng(seed)
+    x0s = np.array(X0)[None] + 0.02 * rng.standard_normal((Bsz, NX))
+    Ws = 2 * rng.random((Bsz, steps, NX)) - 1
+    logs = {}
+    fused_qp.reset_launch_counts()
+    for device in devices:
+        m, solver = make_rocket_problem(N=N, device=device, dtype=torch.float64)
+        solver.opts = solver.opts._replace(
+            verbose=False, ipm=solver.opts.ipm._replace(kkt="fused"),
+            sqp=solver.opts.sqp._replace(tol_step=1e-6, tol_feas=1e-6))
+        logs[device] = build_batched_closed_loop(solver, steps)(x0s, Ws)
+    launches = fused_qp.launch_counts()
+    if devices[0] == "cuda" and min(launches["factor_predictor"], launches["resolve"]) <= 0:
+        fail(f"[10e] the captured closed loop did not hold K1/K2: {launches}")
+    worst = compare_logs("10e", logs[devices[0]], logs[devices[1]])
+    say(f"[10e] build_batched_closed_loop RTI (two-QP) N={N} B={Bsz} f64 {steps} steps, "
+        f"{devices[0]} (captured) against {devices[1]} (eager): success "
+        f"{logs[devices[1]].success.tolist()}, QP iterations "
+        f"{logs[devices[1]].qp_iters.tolist()}, max |diff| {worst:.2e}")
+
+
 def run_bench(label, wl):
     """One bench twin run (warm-in, timed window, B = 1 latency loop) of a
     built workload, its launch counts zeroed just before and read just
@@ -558,22 +722,39 @@ def run_bench(label, wl):
     record, carry = bench.run(wl, n_lat=LATENCY_STEPS)
     launches = bench.launch_counts()
     say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
-        f"sls_block={record['sls_block']} "
-        f"ran in {time.perf_counter() - t0:.1f} s, launches {launches}")
+        f"sls_block={record['sls_block']} on the captured step "
+        f"ran in {time.perf_counter() - t0:.1f} s: {record['value']} solves/s, "
+        f"on_device_step_ms {record['on_device_step_ms']} (K walls "
+        f"{record['on_device_fit_points_ms']}), latency p50 "
+        f"{record['single_step_latency_ms']} ms, wrapper counts (warm-ups, captures, the "
+        f"eager check) {launches}, per replay {record['kernel_launches_per_step']}")
     print(json.dumps(record), flush=True)
     if record["success_fraction"] != 1.0 or not record["finite"]:
         fail(f"bench twin [{label}]: success_fraction must be 1.0 and the state finite")
+    check = record["eager_check"]
+    if not (check["success_equal"] and check["qp_iters_equal"]):
+        fail(f"bench twin [{label}]: the captured step and the eager step differ: {check}")
+    if record["on_device_step_ms"] is None:
+        fail(f"bench twin [{label}]: on_device_step_ms is not positive: "
+             f"{record['on_device_fit_points_ms']}")
     return record, carry, launches
 
 
 def breakdown(label, wl, carry):
-    """Stage breakdown and device busy share of one configuration."""
+    """Stage breakdown of the eager step, and the device busy share of the
+    eager and of the captured step, of one configuration."""
     stages = bench.stage_breakdown(wl, carry, wl.w_seq[0])
-    prof = bench.profile_kernels(wl, carry, wl.w_seq)
-    say(f"[{label}] stage ms {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
-    say(f"[{label}] profiler: {prof['steps']} steps, wall (unprofiled) {prof['wall_ms']:.2f} ms, "
-        f"device kernels {prof['device_kernel_ms']:.2f} ms, busy share {prof['device_busy_share']}")
-    return {"stages": stages, "profile": prof}
+    say(f"[{label}] stage ms (eager) {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    out = {"stages": stages}
+    for name, captured in (("profile", False), ("profile_captured", True)):
+        prof = bench.profile_kernels(wl, carry, wl.w_seq, captured=captured)
+        say(f"[{label}] profiler, {'captured' if captured else 'eager'} step: {prof['steps']} "
+            f"steps, wall (unprofiled) {prof['wall_ms']:.2f} ms, device kernels "
+            f"{prof['device_kernel_ms']:.2f} ms, busy share {prof['device_busy_share']}, "
+            f"{sum(r['count'] for r in prof['top_kernels'])} kernel records in the top rows")
+        out[name] = prof
+    torch.cuda.empty_cache()
+    return out
 
 
 def bench_workloads():
@@ -604,8 +785,10 @@ def bench_phases(wls):
             fail(f"the bench path [{label}] did not launch {kernels} in the timed steps")
         profile[label]["records"].append(record)
         if "stages" not in profile[label]:
-            launches.update({k: counts[k] for k in kernels})
+            # the timed window's launches: one replay's times the replays
+            launches.update({k: record["kernel_launches"][k] for k in kernels})
             profile[label].update(breakdown(label, wls[label], carry))
+        torch.cuda.empty_cache()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_profile.json").write_text(json.dumps(profile, indent=1))
     return launches
@@ -853,7 +1036,7 @@ def join_guarantee_worker(proc, log, timeout=900):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     ap.add_argument("--phases", default="all",
-                    help="comma-separated subset of 3-9 to run after phases 1-2 (default: all)")
+                    help="comma-separated subset of 3-10 to run after phases 1-2 (default: all)")
     ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
                     help="run only phase 9b, alone on the card after the build, with the "
                          "seed and the steps timed or every stage timed; no result lines")
@@ -872,7 +1055,7 @@ def main(argv=None):
         guarantee_mode(stages=args.guarantee_alone == "stages",
                        out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
         return 0
-    run = set(range(3, 10)) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
+    run = set(range(3, 11)) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
     name, limit_w, smi_line = bench.gpu_identity()
     kind = torch.cuda.get_device_name(0)
     say(f"[1] device {kind} (count {torch.cuda.device_count()}), nvidia-smi: {smi_line}, "
@@ -891,10 +1074,12 @@ def main(argv=None):
         if 4 in run:
             check_solve_qp()
             check_fused_iter()
-        if run & {5, 6, 7, 8}:
+        if run & {5, 6, 7, 8, 10}:
             wls = bench_workloads()
         if 5 in run:
             check_closed_loop(wls["6"])
+        if 10 in run:
+            check_capture(wls)
         if 9 in run:
             check_converged()
             join_guarantee_worker(*worker)
@@ -910,7 +1095,7 @@ def main(argv=None):
         if worker is not None and worker[0].poll() is None:
             worker[0].kill()
             worker[0].wait()
-    if run != set(range(3, 10)):
+    if run != set(range(3, 11)):
         say(f"partial run (phases 1, 2 and {sorted(run)}): no result lines")
         return 0
 

@@ -37,6 +37,19 @@ class Model(nn.Module):
                 name, torch.as_tensor(np.asarray(value, float), dtype=dtype, device=device)
             )
 
+    def _register_constants(self, dtype, device, **vectors):
+        """Constant vectors of `ode`, made once on the device as buffers
+        outside the state dict: a tensor made from host data inside `ode`
+        would be a host-to-device copy in every call, which a captured CUDA
+        graph cannot hold."""
+        for name, value in vectors.items():
+            self.register_buffer(f"_const_{name}", torch.tensor(value, dtype=dtype, device=device),
+                                 persistent=False)
+
+    def constant(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The constant vector `name` in `like`'s type, on its device."""
+        return getattr(self, f"_const_{name}").to(dtype=like.dtype, device=like.device)
+
     def ode(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

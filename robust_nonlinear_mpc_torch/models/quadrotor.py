@@ -62,6 +62,8 @@ class Quadrotor(Model):
              0.2, 0.2, 0.2]
         )
         self._register_problem_data(G, g, Gf, gf, E, dtype, device)
+        self._register_constants(dtype, device, gravity=[0.0, 0.0, self.grav],
+                                 inertia=[self.Jx, self.Jy, self.Jz])
 
     def ode(self, X, u):
         v = X[..., 3:6]
@@ -72,7 +74,7 @@ class Quadrotor(Model):
         R = rotation_matrix_from_quaternion(q)
         # body +Z thrust rotated to world, minus gravity on world z
         acc = (1.0 / self.mass) * (R[..., :, 2] * Fz[..., None])
-        acc = acc - X.new_tensor([0.0, 0.0, self.grav])
+        acc = acc - self.constant("gravity", X)
 
         q_dot = quaternion_derivative(q, omega)
 
@@ -86,6 +88,6 @@ class Quadrotor(Model):
             ],
             dim=-1,
         )
-        J = X.new_tensor([self.Jx, self.Jy, self.Jz])
+        J = self.constant("inertia", X)
         omega_dot = (tau - torch.linalg.cross(omega, J * omega, dim=-1)) / J
         return torch.cat([v, acc, q_dot, omega_dot], dim=-1)

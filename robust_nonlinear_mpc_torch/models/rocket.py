@@ -77,6 +77,9 @@ class Rocket(Model):
              0.8, 0.2, 0.04, 0.04]
         )
         self._register_problem_data(G, g, Gf, gf, E, dtype, device)
+        self._register_constants(dtype, device, gravity=[0.0, 0.0, -self.grav],
+                                 cog=[0.0, 0.0, -self.thrust_cog_offset],
+                                 inertia=[self.Jx, self.Jy, self.Jz])
 
     def compute_gimbal_angle(self, servo_angle, tilt_axis_angle):
         """Closed-form four-bar gimbal linkage, elbow-down branch."""
@@ -121,13 +124,13 @@ class Rocket(Model):
 
         R = rotation_matrix_from_quaternion(q)
         acc = (1.0 / self.mass) * torch.einsum("...ij,...j->...i", R, B_thrust)
-        acc = acc + X.new_tensor([0.0, 0.0, -self.grav])
+        acc = acc + self.constant("gravity", X)
 
         q_dot = quaternion_derivative(q, omega)
 
-        cog = X.new_tensor([0.0, 0.0, -self.thrust_cog_offset])
+        cog = self.constant("cog", X)
         torque_vec = torch.linalg.cross(cog.expand(B_thrust.shape), B_thrust, dim=-1)
-        J = X.new_tensor([self.Jx, self.Jy, self.Jz])
+        J = self.constant("inertia", X)
         omega_dot = (torque_vec - torch.linalg.cross(omega, J * omega, dim=-1)) / J
 
         thrust_dot = (thrust_input - thrust_mag) / self.tau_thrust

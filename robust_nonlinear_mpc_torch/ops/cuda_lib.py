@@ -130,3 +130,21 @@ def launch(fn_name, tensors, scalars, device, pointer_array=False):
         err = getattr(lib, fn_name)(*ptrs, *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: {lib.rnm_error_string(err).decode()}")
+
+
+def launch_counts():
+    """Launches of every CUDA kernel of the port since the last reset, by
+    the wrappers' counters (a wrapper counts a launch where it makes one: a
+    launch recorded into a CUDA graph counts once, at capture)."""
+    from robust_nonlinear_mpc_torch.ops import fused_backward, fused_qp, fused_response
+
+    return {**fused_qp.launch_counts(), **fused_response.launch_counts(),
+            **fused_backward.launch_counts()}
+
+
+def reset_launch_counts():
+    from robust_nonlinear_mpc_torch.ops import fused_backward, fused_qp, fused_response
+
+    fused_qp.reset_launch_counts()
+    fused_response.reset_launch_counts()
+    fused_backward.reset_launch_counts()

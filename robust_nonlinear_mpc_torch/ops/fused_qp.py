@@ -88,8 +88,9 @@ def _refined(Hc, Fiv, rhs):
 
 
 def _pack_tri(M, nu):
-    iu, iv = zip(*_tri(nu))
-    return M[..., list(iu), list(iv)]
+    # triu_indices walks the upper triangle row by row, the `_tri(nu)` order
+    iu, iv = torch.triu_indices(nu, nu, device=M.device)
+    return M[..., iu, iv]
 
 
 def _unpack_tri(t, nu):

@@ -15,11 +15,14 @@ Problem (one per lane of the leading batch dimension):
 `lax.while_loop` under `vmap` becomes a masked batch loop: a lane is active
 while it is not done and under its own iteration cap, inactive lanes are
 frozen with a select, and the loop ends when no lane is active (one host
-sync per iteration).
+sync per iteration). Inside `utils.host_sync.no_host_sync()` (a captured
+CUDA graph) it runs the largest iteration cap instead, with no host read;
+the freeze makes every lane end bit for bit where the early exit leaves it.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -31,6 +34,7 @@ from robust_nonlinear_mpc_torch.utils.batch import (
     lane_where,
     tree_where,
 )
+from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
 from robust_nonlinear_mpc_torch.utils.numerics import mv, spd_solve_refined, sym
 
 
@@ -369,11 +373,14 @@ def solve_qp(
     opts: IPMOptions = IPMOptions(),
     init: QPSolution | None = None,
     max_iter_dyn=None,
+    max_iter_bound: int | None = None,
 ) -> QPSolution:
     """Solve a batch of horizon-structured QPs.
 
     `max_iter_dyn`: optional per-lane (B,) iteration cap overriding
-    opts.max_iter (the steady-state-aware budget of fast-SLS).
+    opts.max_iter (the steady-state-aware budget of fast-SLS), and
+    `max_iter_bound` the largest of those caps, known on the host: the loop
+    count inside `no_host_sync()`, which needs it with `max_iter_dyn`.
     `init`: optional warm start; primal from init, slacks re-centered to the
     new bounds with a margin, duals floored, then Mehrotra's initial-point
     shift.
@@ -393,8 +400,12 @@ def solve_qp(
     n_comp = N * ni + ni_f
     if max_iter_dyn is None:
         cap = torch.full((Bsz,), int(opts.max_iter), dtype=torch.int32, device=device)
+        max_iter_bound = int(opts.max_iter)
     else:
         cap = torch.as_tensor(max_iter_dyn, device=device).to(torch.int32).expand(Bsz)
+    sync = host_sync_allowed()
+    if not sync and max_iter_bound is None:
+        raise ValueError("solve_qp under no_host_sync() needs max_iter_bound with max_iter_dyn")
 
     if init is None:
         X0 = torch.zeros((Bsz, N + 1, nx), dtype=dtype, device=device)
@@ -462,9 +473,9 @@ def solve_qp(
     state = (X0, U0, lam0, s0, lamf0, sf0, nu0, R)
     it = torch.zeros((Bsz,), dtype=torch.int32, device=device)
     done = torch.zeros((Bsz,), dtype=torch.bool, device=device)
-    while True:
+    for _ in itertools.count() if sync else range(max_iter_bound):
         active = (~done) & (it < cap)
-        if not bool(active.any()):
+        if sync and not bool(active.any()):
             break
         new_state, res_n, bad = iterate(state, ~active)
         lam_n, s_n, lamf_n, sf_n = new_state[2:6]

@@ -8,8 +8,12 @@
   with the JAX package's stall damping and feasibility restoration. Then it
   applies u0, steps the plant x+ = f(x, u0) + E w and warm-shifts the plan
   and the recycled SLS state.
+* `capture_mpc_step`: the RTI step (or K of them) captured on the card as
+  one CUDA graph, the port's counterpart of `jax.jit(make_mpc_step(...))`
+  and of a `lax.scan` over K steps; same contract as `make_mpc_step`.
 * `build_batched_closed_loop`: SQP seed (with the soft-slack fallback on the
-  lanes whose SQP failed), then T steps of `make_mpc_step`.
+  lanes whose SQP failed), then T steps of `make_mpc_step`; in RTI mode on
+  the card, T replays of the captured step (JAX's `lax.scan` over time).
 * `build_chunked_converged_loop`: the until-convergence closed loop with the
   soft fallback in `soft_fallback_chunk(N)` chunks; otherwise
   `build_batched_closed_loop` (the JAX driver's bounded dispatches have no
@@ -40,9 +44,11 @@ from robust_nonlinear_mpc_torch.utils.batch import (
     lane_all_finite,
     lane_max,
     lane_where,
+    tree_leaves,
     tree_map,
     tree_where,
 )
+from robust_nonlinear_mpc_torch.utils.host_sync import no_host_sync
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
@@ -263,7 +269,7 @@ def make_mpc_step(solver: SCPSLSSolver):
             res = None
             qp_total = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
             for _ in range(rti):
-                res = solver._iteration(X, U, x, persist)
+                res = solver._iteration(X, U, x, persist, restore=False)
                 X, U, persist, _ = _accept_rti(X, U, persist, res)
                 qp_total = qp_total + res.sls.qp_iters
             bx, bu = res.sls.backoff_x, res.sls.backoff_u
@@ -279,6 +285,112 @@ def make_mpc_step(solver: SCPSLSSolver):
         return _advance(solver, X, U, persist, x, w_t), out
 
     return mpc_step
+
+
+def make_mpc_scan(solver: SCPSLSSolver):
+    """(carry, W (K, B, nw)) -> (carry after K steps, the K outs stacked K
+    first): K steps of `make_mpc_step` in a row, the JAX `lax.scan` of
+    `make_mpc_step`, and what `capture_mpc_step` records for K > 1."""
+    step = make_mpc_step(solver)
+
+    def scan(carry, W):
+        outs = []
+        for w_t in W:
+            carry, out = step(carry, w_t)
+            outs.append(out)
+        return carry, tree_map(lambda *o: torch.stack(o), *outs)
+
+    return scan
+
+
+def _copy_into(dst, src):
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError(f"the captured step takes {dst.dtype} {tuple(dst.shape)}, "
+                         f"got {src.dtype} {tuple(src.shape)}")
+    dst.copy_(src)
+
+
+class CapturedMPCStep:
+    """K RTI steps captured as one CUDA graph (`capture_mpc_step`).
+
+    Calling it with (carry, w) copies the carry and w into the graph's static
+    input buffers (the carry is not copied when it is the one the last replay
+    returned), replays the graph and returns (carry', out). Both live in
+    static buffers that the next replay overwrites: keep them with `clone`.
+    `launches`: each kernel's launches in one replay, counted by the
+    wrappers at capture (a replay launches without them)."""
+
+    def __init__(self, solver, carry, steps):
+        from robust_nonlinear_mpc_torch.ops.cuda_lib import launch_counts
+
+        x = carry[3]
+        device = x.device
+        body = make_mpc_step(solver) if steps == 1 else make_mpc_scan(solver)
+        self._w_shape = (x.shape[0], solver.m.nw) if steps == 1 else (steps, x.shape[0], solver.m.nw)
+        self._w = torch.zeros((steps, x.shape[0], solver.m.nw), dtype=x.dtype, device=device)
+        # the static input buffers: every tensor of the carry, persist's
+        # tensors included (a zero-size Phi where store_phi is False)
+        self._carry = tree_map(torch.clone, carry)
+
+        run_steps = lambda: body(self._carry, self._w[0] if steps == 1 else self._w)
+
+        # warm-up on a side stream, from the static copy (the caller's carry
+        # does not move): builds the kernel library, creates the cuBLAS
+        # handles and sets the kernels' shared-memory attributes
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), no_host_sync():
+            run_steps()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph), no_host_sync():
+            c, out = run_steps()
+            # an out that is an input buffer (the plant state x) is copied
+            # before the carry goes back into the input buffers
+            inputs = {t.data_ptr() for t in tree_leaves(self._carry) if t.numel()}
+            self._out = tree_map(lambda t: t.clone() if t.data_ptr() in inputs else t, out)
+            # the new carry goes back into the input buffers, as a scan's
+            tree_map(_copy_into, self._carry, c)
+        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
+
+    def __call__(self, carry, w):
+        if tuple(w.shape) != self._w_shape:
+            raise ValueError(f"the captured step takes w of shape {self._w_shape}, "
+                             f"got {tuple(w.shape)}")
+        if carry is not self._carry:
+            tree_map(_copy_into, self._carry, carry)
+        self._w.copy_(w.reshape(self._w.shape))
+        self.graph.replay()
+        return self._carry, self._out
+
+
+def capture_mpc_step(solver: SCPSLSSolver, carry, steps: int = 1) -> CapturedMPCStep:
+    """The RTI closed-loop step of `make_mpc_step`, `steps` of them in a row,
+    captured on the card as one CUDA graph with its own memory pool: the
+    `rti` SCP iterations of `_accept_rti` and `_advance`, with the IPM loops
+    at their host-known iteration bounds (`utils.host_sync.no_host_sync`),
+    so every lane ends bit for bit where the eager step leaves it.
+
+    `carry` = (X, U, persist, x) gives the shapes (and the warm-up's state).
+    Returns a callable with `make_mpc_step`'s contract, (carry, w) ->
+    (carry', out); with steps = K > 1 it takes w (K, B, nw) and returns the
+    carry after K steps and the K steps' outs stacked (K first), as a
+    `lax.scan` does. Its outputs live in static buffers, which the next
+    replay overwrites. Raises for the until-convergence step (rti <= 0,
+    whose SCP rounds gather lanes on the host) and for a carry off the
+    card; a failed capture or replay raises too."""
+    if int(solver.opts.rti) <= 0:
+        raise ValueError("capture_mpc_step captures the RTI step (rti > 0): the until-convergence "
+                         "step gathers the undecided lanes on the host")
+    if carry[3].device.type != "cuda":
+        raise RuntimeError(f"capture_mpc_step captures a CUDA graph: the carry is on "
+                           f"{carry[3].device}")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    return CapturedMPCStep(solver, carry, int(steps))
 
 
 def _nominal(solver, x0s):
@@ -344,8 +456,9 @@ def _persist0(solver, B):
 def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None):
     """run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog: the SQP seed ("seed"
     stage; the soft fallback, `fallback_chunk` lanes at a time, with
-    `nominal_soft_fallback`), then `sim_steps` MPC steps ("step" stages)."""
-    step = make_mpc_step(solver)
+    `nominal_soft_fallback`), then `sim_steps` MPC steps ("step" stages): in
+    RTI mode on the card, replays of the step captured from the seed's
+    carry (`capture_mpc_step`), else `make_mpc_step`."""
 
     def run(x0s, Ws):
         x0s, Ws = _as_inputs(solver, x0s, Ws)
@@ -354,11 +467,14 @@ def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None):
             if solver.opts.nominal_soft_fallback:
                 X, U = _soft_fallback(solver, x0s, X, U, ok, chunk=fallback_chunk)
         carry = (X, U, _persist0(solver, x0s.shape[0]), x0s)
+        captured = int(solver.opts.rti) > 0 and x0s.device.type == "cuda"
+        step = capture_mpc_step(solver, carry) if captured else make_mpc_step(solver)
         outs = []
         for t in range(sim_steps):
             with stage("step"):
                 carry, out = step(carry, Ws[:, t])
-            outs.append(out)
+            # a replay overwrites the last one's outputs
+            outs.append(tree_map(torch.clone, out) if captured else out)
         return _stack_log(outs, sim_steps)
 
     return run

@@ -49,6 +49,7 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     tube_cost,
 )
 from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where, tree_where
+from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
@@ -293,18 +294,21 @@ def fast_sls_solve(
     Gmat = torch.cat([prob.stat.Gx, prob.stat.Gu], dim=1)
 
     steady_cap = None
-    budget = None
+    budget = budget_bound = None
     if opts.adaptive_ipm_budget is not None:
         steady_cap, cold_cap = opts.adaptive_ipm_budget
         budget = torch.where(persist.qp_steady, steady_cap, cold_cap).to(torch.int32)
+        budget_bound = max(int(steady_cap), int(cold_cap))
 
     def forward(applied, applied_f, init=None, first=False):
         data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - applied,
                       hf=gf_res - applied_f, xinit=xinit_dev)
         use_first = first and opts.ipm_first is not None
         with stage("sls.qp"):
-            return solve_qp(prob.stat, data, opts.ipm_first if use_first else opts.ipm,
-                            init=init, max_iter_dyn=None if use_first else budget)
+            if use_first:
+                return solve_qp(prob.stat, data, opts.ipm_first, init=init)
+            return solve_qp(prob.stat, data, opts.ipm, init=init, max_iter_dyn=budget,
+                            max_iter_bound=budget_bound)
 
     def warm_init():
         w = persist.qp_warm
@@ -448,11 +452,12 @@ def fast_sls_solve(
     else:
         # until convergence, at most opts.max_iter iterations: a masked batch
         # loop (the JAX while_loop under vmap); a lane that has stopped keeps
-        # its carry until every lane stops
+        # its carry until every lane stops (inside no_host_sync(), until
+        # opts.max_iter)
         it = 1
         while it < opts.max_iter:
             running = ~carry.converged & ~carry.infeasible
-            if not bool(running.any()):
+            if host_sync_allowed() and not bool(running.any()):
                 break
             stepped, delta = step(carry, resolve_forward=True)
             carry = tree_where(running, stepped, carry)

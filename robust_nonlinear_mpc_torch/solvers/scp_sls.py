@@ -176,11 +176,12 @@ class SCPSLSSolver(nn.Module):
         qu = 2 * (U @ self.R.T)
         return A, B, c, qx, qu, g_res, gf_res, x0 - X[:, 0]
 
-    def _iteration(self, X, U, x0, persist) -> SCPIterResult:
+    def _iteration(self, X, U, x0, persist, restore=None) -> SCPIterResult:
         """One SCP iteration. Its stages ("scp.linearize", "scp.fast_sls" with
         "sls.qp" / "sls.backward" / "sls.response" inside, "scp.restoration")
         are timed inside a `utils.stages.timed()` block and cost nothing
-        outside one."""
+        outside one. `restore`: whether to solve the restoration iterate
+        (default `feasibility_restoration`; the RTI step never reads it)."""
         N = self.N
         with stage("scp.linearize"):
             A, B, c, qx, qu, g_res, gf_res, xinit_dev = self.assemble_deviation_problem(X, U, x0)
@@ -199,7 +200,7 @@ class SCPSLSSolver(nn.Module):
             + (X_new[:, N] * (X_new[:, N] @ self.Qf.T)).sum(dim=1)
         )
         X_rest = U_rest = rest_ok = None
-        if self.opts.feasibility_restoration:
+        if self.opts.feasibility_restoration if restore is None else restore:
             X_rest, U_rest, rest_ok = self._restore(
                 X, U, X_new, U_new, sls, (A, B, c, qx, qu, g_res, gf_res, xinit_dev))
         return SCPIterResult(

@@ -56,6 +56,13 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree):
+    """The tensors of a tree of NamedTuples / tuples, in order."""
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [] if tree is None else [tree]
+
+
 def tree_where(mask: torch.Tensor, new, old):
     """Per-lane select over a whole state tree."""
     return tree_map(lambda n, o: lane_where(mask, n, o), new, old)

@@ -6,7 +6,8 @@
 ("sls.qp", "sls.backward", "sls.response"). It does nothing unless a
 `timed()` block is open; inside one, each recorded stage synchronizes the
 device at its start and end and appends its seconds to the block's record
-(nested stages count in their parent too).
+(nested stages count in their parent too). Inside `host_sync.no_host_sync()`
+(a CUDA graph's warm-up and capture) no stage syncs or records.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from collections import defaultdict
 from contextlib import contextmanager
 
 import torch
+
+from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
 
 _record = None
 _only = None
@@ -28,7 +31,7 @@ def _sync():
 
 @contextmanager
 def stage(name: str):
-    if _record is None or (_only is not None and name not in _only):
+    if _record is None or (_only is not None and name not in _only) or not host_sync_allowed():
         yield
         return
     _sync()

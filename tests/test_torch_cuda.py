@@ -8,7 +8,8 @@ the last wave part-filled and at the other models' widths and the general
 backward kernel at the main path's shape, a ragged batch, a long horizon,
 the same edges (K3 also at narrow inputs); the until-convergence closed
 loop with every mitigation (chip_smoke phase 9a) on the card at B = 529 for
-one step against the CPU on its first 16 lanes.
+one step against the CPU on its first 16 lanes; the RTI step captured as
+one CUDA graph against the eager step at B = 529 over 3 steps.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -129,3 +130,15 @@ def test_converged_closed_loop_card_matches_cpu(smoke):
     # identical success, SCP, QP iterations and scp_failed; X/U and the
     # finite backoffs within 1e-8 (check_converged fails otherwise)
     smoke.check_converged(Bsz=529, steps=1, chunked=(), ref_lanes=16)
+
+
+def test_captured_step_matches_eager_at_529(smoke):
+    # the default configuration's step captured as one CUDA graph against
+    # the eager step over 3 steps from the bench seed at B = 529 (the last
+    # wave part-filled): identical counts, X/U/backoffs bit for bit or
+    # within 1e-6 relative (captured_vs_eager fails otherwise)
+    from robust_nonlinear_mpc_torch import bench
+
+    wl = bench.build_workload(B=529, n_warm=0, n_rep=3)
+    in_graph = smoke.captured_vs_eager("529", wl, wl.carry, wl.w_seq)
+    assert {"factor_predictor", "resolve"} <= set(in_graph)
