@@ -90,15 +90,29 @@ before the result lines):
      QP and SCP iterations and scp_failed on every lane, the plant state,
      X, U and the backoffs bit for bit (else within 1e-6 relative, with a
      line that says so).
+ 11. the robust-vs-soft comparison and the QP front end (untimed, after
+     phase 10): (a) `expe/main_rocket_compare_closed_loop.generate` at
+     N = 15, T = 4, float64, on the card with the robust solver at
+     kkt="fused" (K1/K2) against the CPU at kkt="riccati" (the plain path),
+     which a second worker started with the script runs meanwhile:
+     identical robust success and soft success and iterations at every
+     step, the applied inputs and both closed-loop costs within 1e-8
+     relative, K1 launched, each controller's seconds a step; (b) the QP
+     front end (`solvers/qp_frontend.QP`) on the rocket LTV along lane 0 of
+     the bench's SQP seed and on the double integrator of
+     tests/test_qp_frontend.py: backend "torch" with kkt="fused" on the
+     card against kkt="riccati" on the CPU (identical success, X/U/duals
+     within 1e-8) and against backend "native" (X/U 1e-7, duals 1e-6, cost
+     1e-9 relative), K1/K2 launched, ms a solve of each backend.
 Every launch counter is zeroed just before each bench run and before phase
 9b (in its own process), and read just after. A wrapper counts a launch
 recorded into a CUDA graph once, at capture; a replay launches without it,
 so the bench record counts one replay's launches times the replays, and
 the kernels record's `launches` are the first run of each path's timed
 window, counted so. The last lines are the kernels record, the nvidia-smi
-line and {"ok": true, "device": {...}}. `--phases 9` runs a subset (phases
-1 and 2 always run) and then prints neither result line; so does
-`--guarantee-alone`.
+line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`)
+runs a subset (phases 1 and 2 always run) and then prints neither result
+line; so does `--guarantee-alone`.
 """
 
 from __future__ import annotations
@@ -162,6 +176,7 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the B = 1 latency loop of each bench run here (the bench twin alone runs
 # the reference's 200 steps): cut to keep the script inside its time limit
 LATENCY_STEPS = 50
+ALL_PHASES = range(3, 12)
 
 
 _START = time.perf_counter()
@@ -1003,21 +1018,204 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     return res
 
 
-def start_guarantee_worker():
-    """Phase 9b in a process of its own (`--guarantee-worker`), which runs
-    while this one does the untimed phases (4, the bench seed, 5, 9a): the
-    card idles most of the time in both. Its output goes to a log file."""
+COMPARE_N, COMPARE_T = 15, 4
+
+
+def compare_run(device, kkt, out=None):
+    """Phase 11a on one device: the comparison CLI's `generate` (N = 15, T =
+    4, float64) with the robust solver's Newton solves by `kkt`. Returns
+    each step's robust success and soft success and iterations (recorded by
+    wrapping both solvers' `solve`), the applied inputs, both closed-loop
+    costs and each controller's seconds a step (`utils.stages`, which
+    synchronizes the card at each step's ends); writes it to
+    chiprun_out/`out` when given."""
+    from robust_nonlinear_mpc_torch.expe import main_rocket_compare_closed_loop as cmp
+    from robust_nonlinear_mpc_torch.solvers.scp_sls import SCPSLSSolver
+    from robust_nonlinear_mpc_torch.solvers.soft_nlp import NLPSoftSolver
+    from robust_nonlinear_mpc_torch.utils.stages import timed
+
+    log = {"robust": [], "soft": []}
+    robust_solve, soft_solve = SCPSLSSolver.solve, NLPSoftSolver.solve
+
+    def robust(self, x0):
+        sol = robust_solve(self, x0)
+        log["robust"].append(bool(sol["success"]))
+        return sol
+
+    def soft(self, *a, **kw):
+        sol = soft_solve(self, *a, **kw)
+        log["soft"].append([bool(sol["success"]), int(sol["iters"])])
+        return sol
+
+    cmp.FOLDER = str(OUT_DIR / f"compare_{device}")
+    SCPSLSSolver.solve, NLPSoftSolver.solve = robust, soft
+    t0 = time.perf_counter()
+    try:
+        with timed(("compare.robust", "compare.soft")) as rec:
+            path = cmp.generate(COMPARE_N, COMPARE_T, device=device, kkt=kkt)
+    finally:
+        SCPSLSSolver.solve, NLPSoftSolver.solve = robust_solve, soft_solve
+    d = np.load(path)
+    record = dict(log, device=device, kkt=kkt, seconds=time.perf_counter() - t0,
+                  step_s={k: list(v) for k, v in rec.items()},
+                  r_input=d["r_input_trajectory"].tolist(), s_input=d["s_input_trajectory"].tolist(),
+                  Jr_total=float(d["Jr_total"]), Js_total=float(d["Js_total"]))
+    if out is not None:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / out).write_text(json.dumps(record, indent=1))
+    return record
+
+
+COMPARE_REFERENCE = "chip_smoke_compare_cpu.json"
+
+
+def check_compare(reference):
+    """Phase 11a: the robust-vs-soft comparison on the card (kkt="fused",
+    K1/K2) against the CPU (kkt="riccati", the plain path), which
+    `reference` (a worker started with the script) runs meanwhile:
+    identical robust success and soft success and iterations at every
+    step, the applied inputs and both closed-loop costs within 1e-8
+    relative, K1 launched."""
+    fused_qp.reset_launch_counts()
+    card = compare_run("cuda", "fused")
+    launches = fused_qp.launch_counts()
+    join_worker(*reference, "11a")
+    host = json.loads((OUT_DIR / COMPARE_REFERENCE).read_text())
+    for key in ("robust", "soft"):
+        if card[key] != host[key]:
+            fail(f"[11a] {key} success/iterations differ: card {card[key]}, CPU {host[key]}")
+    worst = 0.0
+    for key in ("r_input", "s_input", "Jr_total", "Js_total"):
+        a, b = np.asarray(card[key]), np.asarray(host[key])
+        r = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+        worst = max(worst, r)
+        if not r <= 1e-8:
+            fail(f"[11a] {key} differs between the card and the CPU by {r:.3e} relative")
+    if launches["factor_predictor"] <= 0:
+        fail(f"[11a] the robust solver on the card did not launch K1: {launches}")
+    per_step = lambda rec, k: [round(v, 3) for v in rec["step_s"][k]]
+    say(f"[11a] comparison N={COMPARE_N} T={COMPARE_T} f64: robust success {card['robust']}, soft "
+        f"(success, iterations) {card['soft']}, J robust {card['Jr_total']:.6e} soft "
+        f"{card['Js_total']:.6e}, max relative difference card/CPU {worst:.3e}; s a step on the "
+        f"card: robust {per_step(card, 'compare.robust')}, soft {per_step(card, 'compare.soft')} "
+        f"({card['seconds']:.1f} s in all); on the CPU: robust {per_step(host, 'compare.robust')}, "
+        f"soft {per_step(host, 'compare.soft')} ({host['seconds']:.1f} s, beside the card run's "
+        f"phases); launches {launches}")
+    return card
+
+
+def frontend_problems(seed_wl):
+    """Phase 11b's two QPs as NumPy data: the rocket LTV along lane 0 of the
+    bench's SQP seed (the deviation QP of the reference's cost and box,
+    linearized in float64 on the CPU, from a plant state 0.01 off the
+    seed's x0) and the double integrator of tests/test_qp_frontend.py."""
+    from robust_nonlinear_mpc_torch.expe.main_rocket_robust_closed_loop import make_rocket_problem
+
+    host = lambda t: t.detach().cpu().double().numpy()
+    X, U = host(seed_wl.carry[0][0]), host(seed_wl.carry[1][0])
+    m, solver = make_rocket_problem(seed_wl.solver.N, device="cpu")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    A, B, c = (host(v) for v in m.linearize_traj(t(X), t(U)))
+    Q, R, Qf = host(solver.Q), host(solver.R), host(solver.Qf)
+    G, g, Gf, gf = host(m.G), host(m.g), host(m.Gf), host(m.gf)
+    N = U.shape[0]
+    rocket = dict(
+        kind="rocket", N=N, Q=Q, R=R, Qf=Qf, A=A, B=B, c=c,
+        h=g[None] - np.concatenate([X[:N], U], axis=1) @ G.T, hf=gf - Gf @ X[N],
+        qx=np.concatenate([2 * X[:N] @ Q.T, (2 * Qf @ X[N])[None]]), qu=2 * U @ R.T,
+        x0=-0.01 * np.random.default_rng(11).standard_normal(m.nx),
+    )
+    integrator = dict(
+        kind="lti", N=6, Q=np.eye(2), R=0.1 * np.eye(1), Qf=5 * np.eye(2),
+        A=np.array([[1.0, 0.1], [0.0, 1.0]]), B=np.array([[0.005], [0.1]]), E=0.1 * np.eye(2),
+        G=np.vstack([np.eye(3), -np.eye(3)]), g=np.array([4.0, 4.0, 2.0, 4.0, 4.0, 2.0]),
+        Gf=np.vstack([np.eye(2), -np.eye(2)]), gf=np.array([4.0, 4.0, 4.0, 4.0]),
+        x0=np.array([-3.0, -0.5]),
+    )
+    return [rocket, integrator]
+
+
+def frontend_qp(p, device, backend, kkt="riccati"):
+    """The front end's QP of problem `p` on `device`, with the front end's
+    default IPM settings (30 iterations, tolerance 1e-9). At 1e-10 the
+    torch IPM stops on the rocket QP at its complementarity floor (KKT
+    residual 2e-9, duals up to 1e2) where the native one goes on to 1e-10,
+    and their duals part by 3e-6."""
+    from robust_nonlinear_mpc_torch.models.linear import LTI, LTV
+    from robust_nonlinear_mpc_torch.models.rocket import Rocket
+    from robust_nonlinear_mpc_torch.solvers.qp_frontend import QP
+
+    ipm = IPMOptions(kkt=kkt)
+    if p["kind"] == "lti":
+        m = LTI(p["A"], p["B"], p["E"], G=p["G"], g=p["g"], Gf=p["Gf"], gf=p["gf"], device=device)
+        return QP(p["N"], p["Q"], p["R"], m, p["Qf"], backend=backend, ipm=ipm)
+    m = LTV(Rocket(device=device), p["N"])
+    m.update_model(p["A"], p["B"], np.zeros((p["N"] + 1, m.nx, m.nw)), p["h"], p["hf"])
+    qp = QP(p["N"], p["Q"], p["R"], m, p["Qf"], backend=backend, ipm=ipm)
+    qp.offset_constraints(p["c"])
+    qp.update_q_cost_lin(p["qx"], p["qu"])
+    return qp
+
+
+def check_frontend(seed_wl, devices=("cuda", "cpu")):
+    """Phase 11b: the QP front end, `backend="torch"` with kkt="fused" on
+    devices[0] against kkt="riccati" on devices[1] (identical success,
+    X/U/duals within 1e-8 of each output's largest magnitude, at least 1),
+    and against `backend="native"` (test_native_qp.py's tolerances: X/U
+    1e-7, duals 1e-6, cost 1e-9 relative); K1/K2 launched; ms a solve of
+    each backend."""
+    for p in frontend_problems(seed_wl):
+        fused_qp.reset_launch_counts()
+        card = frontend_qp(p, devices[0], "torch", kkt="fused")
+        got = card.solve(p["x0"])
+        launches = fused_qp.launch_counts()
+        host = frontend_qp(p, devices[1], "torch").solve(p["x0"])
+        native = frontend_qp(p, "cpu", "native").solve(p["x0"])
+        if not (got["success"] and host["success"] and native["success"]):
+            fail(f"[11b] {p['kind']}: success card {got['success']}, CPU {host['success']}, "
+                 f"native {native['success']}")
+        worst = 0.0
+        for k in ("primal_x", "primal_u", "dual_mu", "dual_mu_f"):
+            d = float(np.abs(got[k] - host[k]).max(initial=0.0))
+            worst = max(worst, d / max(1.0, float(np.abs(host[k]).max(initial=0.0))))
+        if not worst <= 1e-8:
+            fail(f"[11b] {p['kind']}: card and CPU differ by {worst:.3e}")
+        dn = {k: float(np.abs(got[k] - native[k]).max(initial=0.0))
+              for k in ("primal_x", "primal_u", "dual_mu", "dual_mu_f")}
+        dcost = abs(got["cost"] - native["cost"]) / max(abs(native["cost"]), 1e-30)
+        if not (dn["primal_x"] <= 1e-7 and dn["primal_u"] <= 1e-7 and dn["dual_mu"] <= 1e-6
+                and dn["dual_mu_f"] <= 1e-6 and dcost <= 1e-9):
+            fail(f"[11b] {p['kind']}: the native backend differs: {dn}, cost {dcost:.3e}")
+        if devices[0] == "cuda" and min(launches["factor_predictor"], launches["resolve"]) <= 0:
+            fail(f"[11b] {p['kind']}: the card's solve did not launch K1/K2: {launches}")
+        ms = {}
+        for name, qp in (("card fused", card), ("cpu riccati", frontend_qp(p, devices[1], "torch")),
+                         ("native", frontend_qp(p, "cpu", "native"))):
+            qp.solve(p["x0"])
+            t0 = time.perf_counter()
+            for _ in range(5):
+                qp.solve(p["x0"])
+            ms[name] = round(1e3 * (time.perf_counter() - t0) / 5, 3)
+        say(f"[11b] front end {p['kind']} (N={p['N']}, nx={p['A'].shape[-1]}): card/CPU max "
+            f"difference {worst:.3e}, native max |diff| {max(dn.values()):.3e} (cost "
+            f"{dcost:.2e} relative), cost {got['cost']:.9e}, K1/K2 launches a solve "
+            f"{launches['factor_predictor']}/{launches['resolve']}, ms a solve {ms}")
+
+
+def start_worker(flag, log_name):
+    """This script in a second process with `flag`; its output goes to
+    chiprun_out/`log_name`."""
     import subprocess
 
     OUT_DIR.mkdir(exist_ok=True)
-    log = open(OUT_DIR / "chip_smoke_9b.log", "w")
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--guarantee-worker"],
+    log = open(OUT_DIR / log_name, "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag],
                             stdout=log, stderr=subprocess.STDOUT)
     return proc, log
 
 
-def join_guarantee_worker(proc, log, timeout=900):
-    """Wait for the worker, echo its lines, fail if it failed."""
+def join_worker(proc, log, label, timeout=900):
+    """Wait for a worker, echo its lines, fail if it failed."""
     import subprocess
 
     try:
@@ -1027,20 +1225,22 @@ def join_guarantee_worker(proc, log, timeout=900):
         proc.wait()
         rc = None
     log.close()
-    for line in (OUT_DIR / "chip_smoke_9b.log").read_text().splitlines():
-        if line.startswith(("[9b]", "[mc]", "chip_smoke FAILED", "Traceback")) or "Error" in line:
+    for line in Path(log.name).read_text().splitlines():
+        if line.startswith((f"[{label}]", "[mc]", "chip_smoke FAILED", "Traceback")) or "Error" in line:
             print(line, flush=True)
     if rc != 0:
-        fail(f"phase 9b's worker ended with {rc} (see {OUT_DIR / 'chip_smoke_9b.log'})")
+        fail(f"phase {label}'s worker ended with {rc} (see {log.name})")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     ap.add_argument("--phases", default="all",
-                    help="comma-separated subset of 3-10 to run after phases 1-2 (default: all)")
+                    help="comma-separated subset of 3-11 to run after phases 1-2 (default: all)")
     ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
                     help="run only phase 9b, alone on the card after the build, with the "
                          "seed and the steps timed or every stage timed; no result lines")
     ap.add_argument("--guarantee-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--compare-reference", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -1049,40 +1249,54 @@ def main(argv=None):
         # that the main process builds meanwhile
         guarantee_mode(stages=True)
         return 0
+    if args.compare_reference:
+        # phase 11a's CPU run, beside the main process
+        torch.set_num_threads(2)
+        compare_run("cpu", "riccati", out=COMPARE_REFERENCE)
+        return 0
     if args.guarantee_alone:
         say(f"[1] device {torch.cuda.get_device_name(0)}, nvidia-smi: {bench.gpu_identity()[2]}")
         cuda_lib.build_extension()
         guarantee_mode(stages=args.guarantee_alone == "stages",
                        out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
         return 0
-    run = set(range(3, 11)) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
+    run = set(ALL_PHASES) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
     name, limit_w, smi_line = bench.gpu_identity()
     kind = torch.cuda.get_device_name(0)
     say(f"[1] device {kind} (count {torch.cuda.device_count()}), nvidia-smi: {smi_line}, "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     bench.require_cuda()
 
-    worker = start_guarantee_worker() if 9 in run else None
+    # the CPU-only runs start first, in processes of their own (phase 9b's
+    # seed needs no kernel; phase 11a's reference needs no card)
+    workers = {}
+    if 9 in run:
+        workers["9b"] = start_worker("--guarantee-worker", "chip_smoke_9b.log")
+    if 11 in run:
+        workers["11a"] = start_worker("--compare-reference", "chip_smoke_11a_cpu.log")
     try:
         t0 = time.perf_counter()
         cuda_lib.build_extension(verbose=True)
         say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
             f"in {time.perf_counter() - t0:.1f} s")
-        # untimed phases, beside the worker; the CPU references leave it a core
+        # untimed phases, beside the workers; the CPU references leave them two cores
         threads = torch.get_num_threads()
         torch.set_num_threads(max(1, threads - 2))
         if 4 in run:
             check_solve_qp()
             check_fused_iter()
-        if run & {5, 6, 7, 8, 10}:
+        if run & {5, 6, 7, 8, 10, 11}:
             wls = bench_workloads()
         if 5 in run:
             check_closed_loop(wls["6"])
         if 10 in run:
             check_capture(wls)
+        if 11 in run:
+            check_compare(workers["11a"])
+            check_frontend(wls["6"])
         if 9 in run:
             check_converged()
-            join_guarantee_worker(*worker)
+            join_worker(*workers["9b"], "9b")
         torch.set_num_threads(threads)
         # timed phases, alone on the card
         if 3 in run:
@@ -1092,10 +1306,11 @@ def main(argv=None):
         if run & {6, 7, 8}:
             launches = bench_phases(wls)
     finally:
-        if worker is not None and worker[0].poll() is None:
-            worker[0].kill()
-            worker[0].wait()
-    if run != set(range(3, 11)):
+        for proc, _ in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if run != set(ALL_PHASES):
         say(f"partial run (phases 1, 2 and {sorted(run)}): no result lines")
         return 0
 

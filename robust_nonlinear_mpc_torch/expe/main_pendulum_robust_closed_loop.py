@@ -1,6 +1,6 @@
 """Pendulum robust closed loop (port of
-`robust_nonlinear_mpc_tpu/expe/main_pendulum_robust_closed_loop.py`, `--run`
-only).
+`robust_nonlinear_mpc_tpu/expe/main_pendulum_robust_closed_loop.py`: `--run`
+generates a run, without it the newest run is plotted).
 
 N = 15, Q = I, R = I, Qf = 10 I, Q_reg = R_reg = 1e3 I, Q_reg_f = 1e4 I,
 rti = 3, fast_sls_rti_steps = 2, E = 0.003 I, dt = 0.05, x0 = [0.5, 0.5, 0,
@@ -8,6 +8,7 @@ rti = 3, fast_sls_rti_steps = 2, E = 0.003 I, dt = 0.05, x0 = [0.5, 0.5, 0,
 
 Usage:  python -m robust_nonlinear_mpc_torch.expe.main_pendulum_robust_closed_loop --run
             [--N 15] [--steps 60] [--device cuda|cpu]
+        python -m robust_nonlinear_mpc_torch.expe.main_pendulum_robust_closed_loop   # plot
 """
 
 from __future__ import annotations
@@ -50,12 +51,21 @@ def generate(N: int | None = None, sim_steps: int = 60, device="cuda"):
     return save_results(FOLDER, "pendulum_robust_closed_loop", results)
 
 
+def plot(show: bool = True):
+    from robust_nonlinear_mpc_torch.expe._common import plot_closed_loop
+
+    return plot_closed_loop(FOLDER, show=show)
+
+
 if __name__ == "__main__":
     p = argparse.ArgumentParser()
-    p.add_argument("--run", action="store_true", required=True,
-                   help="generate and save a run (plotting is not ported)")
+    p.add_argument("--run", action="store_true",
+                   help="generate and save a run (else plot the newest run)")
     p.add_argument("--N", type=int, default=None)
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
-    generate(args.N, args.steps, device=args.device)
+    if args.run:
+        generate(args.N, args.steps, device=args.device)
+    else:
+        plot()

@@ -1,6 +1,6 @@
 """Quadrotor robust closed loop (port of
-`robust_nonlinear_mpc_tpu/expe/main_quadrotor_robust_closed_loop.py`,
-`--run` only).
+`robust_nonlinear_mpc_tpu/expe/main_quadrotor_robust_closed_loop.py`:
+`--run` generates a run, without it the newest run is plotted).
 
 N = 15, Q = diag(10,10,10, 1,1,1, 1,1,1,1, 2,2,2), R = I, Qf = 10 Q,
 regularizers 1e4 I, rti = 3, fast_sls_rti_steps = 2, E = dt*5*diag(...), 30
@@ -9,6 +9,7 @@ quaternion from `np.random.default_rng(seed)`.
 
 Usage:  python -m robust_nonlinear_mpc_torch.expe.main_quadrotor_robust_closed_loop --run
             [--N 15] [--steps 30] [--device cuda|cpu]
+        python -m robust_nonlinear_mpc_torch.expe.main_quadrotor_robust_closed_loop   # plot
 """
 
 from __future__ import annotations
@@ -72,12 +73,21 @@ def generate(N: int | None = None, sim_steps: int = 30, seed: int | None = 1234,
     return save_results(FOLDER, "quadrotor_robust_closed_loop", results)
 
 
+def plot(show: bool = True):
+    from robust_nonlinear_mpc_torch.expe._common import plot_closed_loop
+
+    return plot_closed_loop(FOLDER, show=show)
+
+
 if __name__ == "__main__":
     p = argparse.ArgumentParser()
-    p.add_argument("--run", action="store_true", required=True,
-                   help="generate and save a run (plotting is not ported)")
+    p.add_argument("--run", action="store_true",
+                   help="generate and save a run (else plot the newest run)")
     p.add_argument("--N", type=int, default=None)
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args()
-    generate(args.N, args.steps, device=args.device)
+    if args.run:
+        generate(args.N, args.steps, device=args.device)
+    else:
+        plot()

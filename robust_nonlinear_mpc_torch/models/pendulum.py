@@ -1,5 +1,4 @@
-"""Cart-pole pendulum model (port of `robust_nonlinear_mpc_tpu/models/pendulum.py`
-without its plotting).
+"""Cart-pole pendulum model (port of `robust_nonlinear_mpc_tpu/models/pendulum.py`).
 
 State [cart position, cart velocity, pole angle, pole angular rate], one
 force input; box constraints |x| <= 10, |u| <= 5 (ni = 10, ni_f = 8);
@@ -53,6 +52,28 @@ class Pendulum(Model):
             l * denom
         )
         return torch.stack([x_dot, x_ddot, theta_dot, theta_ddot], dim=-1)
+
+    # per-model plotting (NumPy in; matplotlib imported by the helpers)
+    def plot_nominal_trajectory(self, X, time=None, ax=None):
+        from robust_nonlinear_mpc_torch.utils.plotting import plot_nominal_trajectory
+
+        return plot_nominal_trajectory(X, dt=self.dt, time=time, ax=ax)
+
+    def plot_input_nominal_trajectory(self, U, time=None, ax=None):
+        from robust_nonlinear_mpc_torch.utils.plotting import plot_nominal_trajectory
+
+        return plot_nominal_trajectory(np.asarray(U).reshape(1, -1), dt=self.dt, time=time, ax=ax)
+
+    def plot_tube(self, backoff, center, time=None, ax=None):
+        from robust_nonlinear_mpc_torch.utils.plotting import plot_tube
+
+        return plot_tube(backoff, center, dt=self.dt, time=time, ax=ax)
+
+    def plot_input_tube(self, backoff, center, time=None, ax=None):
+        from robust_nonlinear_mpc_torch.utils.plotting import plot_tube
+
+        return plot_tube(np.asarray(backoff).reshape(1, -1), np.asarray(center).reshape(1, -1),
+                         dt=self.dt, time=time, ax=ax)
 
     def replace_constraints(self, x_max, x_min, u_max, u_min, x_max_f, x_min_f):
         """Asymmetric box override, as the reference: only g and gf change,

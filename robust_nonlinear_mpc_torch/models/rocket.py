@@ -1,12 +1,12 @@
 """Thrust-vectored rocket ("rockETH") model (port of
-`robust_nonlinear_mpc_tpu/models/rocket.py` without its plotting and
-trajectory I/O).
+`robust_nonlinear_mpc_tpu/models/rocket.py`).
 
 State (nx=17) = [pos(3), vel(3), quat wxyz(4), omega(3), thrust_magnitude,
 torque_x, servo_angle_1, servo_angle_2]; inputs (nu=4) = commanded
 [thrust, torque, servo1, servo2]; hover-thrust offset +11.3796 on the thrust
 state and input; closed-form gimbal linkage; first-order actuator lags; box
-polytope (ni = 42, ni_f = 34).
+polytope (ni = 42, ni_f = 34). The grouped plots import matplotlib inside
+their bodies (NumPy in, figures out) and the trajectory I/O is `sim/io.py`'s.
 """
 
 from __future__ import annotations
@@ -30,7 +30,45 @@ from robust_nonlinear_mpc_torch.utils.quaternion import (
 HOVER_THRUST = 11.3796  # gravity-compensation offset
 
 
+def split_box_bounds(g, nx, nu):
+    """(lb_x, ub_x, lb_u, ub_u) from the box polytope's g layout
+    [x_ub; u_ub; -x_lb; -u_lb], as NumPy arrays."""
+    g = g.detach().cpu().numpy() if torch.is_tensor(g) else np.asarray(g, float)
+    return (-g[nx + nu : 2 * nx + nu], g[:nx], -g[2 * nx + nu : 2 * (nx + nu)], g[nx : nx + nu])
+
+
+def _as_rows(a, n):
+    """A (n, T) NumPy view of a trajectory given as (n, T) or (T, n)."""
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return a if a.shape[0] == n else a.T
+
+
 class Rocket(Model):
+    state_names = (
+        "x", "y", "z",
+        "v_x", "v_y", "v_z",
+        "quat_w", "quat_x", "quat_y", "quat_z",
+        "angular_vx", "angular_vy", "angular_vz",
+        "thrust_magnitude", "torque_x", "servo_angle_1", "servo_angle_2",
+    )
+    control_names = ("thrust_magnitude_u", "torque_u", "servo_angle_1_u", "servo_angle_2_u")
+    state_groups = {
+        "pos": slice(0, 3),
+        "vel": slice(3, 6),
+        "quat": slice(6, 10),
+        "omega": slice(10, 13),
+        "act": slice(13, 17),
+    }
+    _GROUP_LABELS = [
+        ["$x$", "$y$", "$z$"],
+        ["$v_x$", "$v_y$", "$v_z$"],
+        ["$q_x$", "$q_y$", "$q_z$", "$q_w$"],
+        [r"$\omega_x$", r"$\omega_y$", r"$\omega_z$"],
+        ["$T$", r"$\tau$", r"$\theta_1$", r"$\theta_2$"],
+    ]
+    _GROUP_YLABELS = ["Position [m]", "Velocity [m/s]", "Quaternion [-]",
+                      "Angular vel. [rad/s]", "Actuators"]
+
     def __init__(self, *, dtype=torch.float64, device="cuda"):
         super().__init__()
         device = checked_device(device)
@@ -80,6 +118,123 @@ class Rocket(Model):
         self._register_constants(dtype, device, gravity=[0.0, 0.0, -self.grav],
                                  cog=[0.0, 0.0, -self.thrust_cog_offset],
                                  inertia=[self.Jx, self.Jy, self.Jz])
+
+    # ------------------------------------------------------------------
+    # Bounds, grouped state/input plots and trajectory save/load
+    # ------------------------------------------------------------------
+    def state_bounds(self):
+        """(lb_x, ub_x, lb_u, ub_u) from the symmetric polytope g layout
+        [x_ub; u_ub; -x_lb; -u_lb]."""
+        return split_box_bounds(self.g, self.nx, self.nu)
+
+    def plot_state_trajectory(self, X, U=None, time=None, axes=None):
+        """Grouped subplots: pos / vel / quat / omega / actuators (+ inputs)."""
+        import matplotlib.pyplot as plt
+
+        X = _as_rows(X, self.nx)
+        if time is None:
+            time = np.arange(X.shape[1]) * self.dt
+        groups = list(self.state_groups.items())
+        n = len(groups) + (1 if U is not None else 0)
+        if axes is None:
+            _, axes = plt.subplots(n, 1, figsize=(10, 2.2 * n), sharex=True)
+        for ax, (name, sl) in zip(axes, groups):
+            for i in range(sl.start, sl.stop):
+                ax.plot(time, X[i], label=self.state_names[i])
+            ax.set_ylabel(name)
+            ax.legend(fontsize=6, ncol=4)
+        if U is not None:
+            U = _as_rows(U, self.nu)
+            ax = axes[-1]
+            for j in range(self.nu):
+                ax.plot(time[: U.shape[1]], U[j], label=self.control_names[j])
+            ax.set_ylabel("inputs")
+            ax.legend(fontsize=6, ncol=4)
+        axes[-1].set_xlabel("time [s]")
+        return axes
+
+    def _group_axes(self, axes):
+        import matplotlib.pyplot as plt
+
+        if axes is None:
+            _, axes = plt.subplots(5, 1, figsize=(12, 18), sharex=True)
+        return axes
+
+    def _group_iter(self, axes):
+        import matplotlib.pyplot as plt
+
+        for ax, (name, sl), lbls, ylab in zip(
+            axes, self.state_groups.items(), self._GROUP_LABELS, self._GROUP_YLABELS,
+        ):
+            colors = plt.cm.viridis(np.linspace(0.3, 0.7, sl.stop - sl.start))
+            yield ax, sl, lbls, colors, ylab
+
+    def plot_state_tube(self, backoff, center, time=None, axes=None):
+        """Grouped state tube, center +- backoff per panel."""
+        backoff = _as_rows(backoff, self.nx)
+        center = _as_rows(center, self.nx)
+        if time is None:
+            time = np.arange(center.shape[1]) * self.dt
+        axes = self._group_axes(axes)
+        for ax, sl, lbls, colors, ylab in self._group_iter(axes):
+            for i, (idx, lbl) in enumerate(zip(range(sl.start, sl.stop), lbls)):
+                ax.fill_between(
+                    time, center[idx] - backoff[idx] + 1e-6,
+                    center[idx] + backoff[idx] - 1e-6,
+                    alpha=0.5, color=colors[i], label=lbl,
+                )
+            ax.set_ylabel(ylab)
+            ax.legend(fontsize=10)
+            ax.grid(True)
+        axes[-1].set_xlabel("Time [s]")
+        return axes
+
+    def plot_normalized_state_tube_with_constraints(self, center, backoff, axes=None):
+        """Grouped tubes in normalized constraint coordinates (0 = lower
+        bound, 1 = upper bound) with the bound lines."""
+        center = _as_rows(center, self.nx)
+        backoff = _as_rows(backoff, self.nx)
+        time = np.arange(center.shape[1]) * self.dt
+        lb_x, ub_x, _, _ = self.state_bounds()
+        axes = self._group_axes(axes)
+        for ax, sl, lbls, colors, _ in self._group_iter(axes):
+            for i, (idx, lbl) in enumerate(zip(range(sl.start, sl.stop), lbls)):
+                denom = ub_x[idx] - lb_x[idx] or 1.0
+                lo = (center[idx] - backoff[idx] - lb_x[idx]) / denom
+                hi = (center[idx] + backoff[idx] - lb_x[idx]) / denom
+                ax.fill_between(time, lo, hi, alpha=0.4, color=colors[i], label=lbl)
+                ax.hlines([0, 1], time[0], time[-1], colors=colors[i], linestyles=["--", ":"])
+            ax.set_ylabel("Normalized state")
+            ax.legend(fontsize=10)
+            ax.grid(True)
+        axes[-1].set_xlabel("Time [s]")
+        return axes
+
+    def plot_states_constraints(self, N, axes=None):
+        """Grouped constraint-bound lines over an N-step window."""
+        time = np.arange(N) * self.dt
+        lb_x, ub_x, _, _ = self.state_bounds()
+        axes = self._group_axes(axes)
+        for ax, sl, lbls, colors, _ in self._group_iter(axes):
+            for i, (idx, lbl) in enumerate(zip(range(sl.start, sl.stop), lbls)):
+                ax.hlines(lb_x[idx], time[0], time[-1], color=colors[i], linestyle="--",
+                          label=f"{lbl} lower")
+                ax.hlines(ub_x[idx], time[0], time[-1], color=colors[i], linestyle=":",
+                          label=f"{lbl} upper")
+            ax.legend(fontsize=10)
+        return axes
+
+    def save_trajectory(self, folder, X, U, **extra):
+        from robust_nonlinear_mpc_torch.sim.io import save_trajectory
+
+        host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) else a
+        return save_trajectory(folder, host(X), host(U), self.dt, prefix="rocket_trajectory",
+                               **extra)
+
+    def load_trajectory(self, path_or_folder):
+        from robust_nonlinear_mpc_torch.sim.io import load_trajectory
+
+        return load_trajectory(path_or_folder, prefix="rocket_trajectory")
 
     def compute_gimbal_angle(self, servo_angle, tilt_axis_angle):
         """Closed-form four-bar gimbal linkage, elbow-down branch."""

@@ -1,6 +1,7 @@
-"""Soft-constrained multiple-shooting NLP: the bench's cold-start fallback
-(port of `soft_nlp_solve` and `soft_fallback_chunk` from
-`robust_nonlinear_mpc_tpu/solvers/soft_nlp.py`), batched over initial states.
+"""Soft-constrained multiple-shooting NLP, the non-robust baseline and the
+bench's cold-start fallback (port of
+`robust_nonlinear_mpc_tpu/solvers/soft_nlp.py`): `soft_nlp_solve`, batched
+over initial states, and the host API `NLPSoftSolver`.
 
     min  sum_k x'Qx + u'Ru + xN'Qf xN
          + rho_soft (||Gamma||^2 + ||gamma_f||^2) + rho_soft_l1 sum(Gamma)
@@ -218,3 +219,52 @@ def soft_nlp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
         cost=full_cost(X, Ut), cost_nominal=nominal_cost(X, Ut),
         feas=feas, step_norm=step_norm, iters=it, success=success,
     )
+
+
+class NLPSoftSolver:
+    """Host API with the reference constructor `NLPSoftConstraints(N, Q, R, m,
+    Qf, rho_soft=1e6, rho_soft_l1=None)` and `.solve(x0, x_guess, u_guess)`,
+    one problem at a time (B = 1), on the model's device and in its type.
+
+    Escalation ladder: the undamped SQP is exact and fast on feasible
+    problems; where slacks are strongly active at degenerate boundaries it
+    can chatter, and a proximally damped retry converges (the damping
+    vanishes at the fixpoint). `solve` runs the rungs in order and stops at
+    the first success."""
+
+    def __init__(self, N, Q, R, m, Qf, rho_soft=1e6, rho_soft_l1=None,
+                 opts: SQPOptions = SOFT_SQP_OPTS, prox_ladder=(0.0, 1.0, 10.0)):
+        self.N = int(N)
+        self.m = m
+        self.Q, self.R, self.Qf = Q, R, Qf
+        self.rho_soft = float(rho_soft)
+        self.rho_soft_l1 = float(rho_soft if rho_soft_l1 is None else rho_soft_l1)
+        self.opts = opts
+        self.prox_ladder = tuple(float(p) for p in prox_ladder)
+
+    def solve(self, x0, x_guess=None, u_guess=None):
+        """Returns the reference's dict: success, primal_x (nx, N+1),
+        primal_u (nu, N), primal_gamma (the stage slacks stage by stage, then
+        the terminal ones), cost, cost_nominal and iters (of the last rung)."""
+        dtype, device = self.m.G.dtype, self.m.G.device
+        t = lambda a: torch.as_tensor(np.array(a, float), dtype=dtype, device=device)
+        X_init = None if x_guess is None else t(np.asarray(x_guess).T)[None]
+        U_init = None if u_guess is None else t(np.asarray(u_guess).T)[None]
+        x0 = t(x0).reshape(1, -1)
+        sol = None
+        for prox in self.prox_ladder:
+            sol = soft_nlp_solve(self.m, self.N, self.Q, self.R, self.Qf, x0,
+                                 rho_soft=self.rho_soft, rho_soft_l1=self.rho_soft_l1,
+                                 X_init=X_init, U_init=U_init, opts=self.opts, prox=prox)
+            if bool(sol.success[0]):
+                break
+        host = lambda a: a[0].detach().cpu().numpy()
+        return {
+            "success": bool(sol.success[0]),
+            "primal_x": host(sol.X).T,
+            "primal_u": host(sol.U).T,
+            "primal_gamma": np.concatenate([host(sol.gamma).reshape(-1), host(sol.gamma_f)]),
+            "cost": float(sol.cost[0]),
+            "cost_nominal": float(sol.cost_nominal[0]),
+            "iters": int(sol.iters[0]),
+        }

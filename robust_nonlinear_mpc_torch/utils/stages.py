@@ -2,8 +2,9 @@
 
 `stage(name)` marks a stage of a closed loop ("seed", "step"), of its seed
 ("seed.sqp", "seed.soft_nlp", "seed.polish"), of the SCP iteration
-("scp.linearize", "scp.fast_sls", "scp.restoration") or of fast-SLS
-("sls.qp", "sls.backward", "sls.response"). It does nothing unless a
+("scp.linearize", "scp.fast_sls", "scp.restoration"), of fast-SLS
+("sls.qp", "sls.backward", "sls.response") or of the comparison CLI
+("compare.robust", "compare.soft"). It does nothing unless a
 `timed()` block is open; inside one, each recorded stage synchronizes the
 device at its start and end and appends its seconds to the block's record
 (nested stages count in their parent too). Inside `host_sync.no_host_sync()`
