@@ -104,13 +104,29 @@ before the result lines):
      card against kkt="riccati" on the CPU (identical success, X/U/duals
      within 1e-8) and against backend "native" (X/U 1e-7, duals 1e-6, cost
      1e-9 relative), K1/K2 launched, ms a solve of each backend.
+ 12. the multi-device layer (`parallel/`, untimed, after phase 11, beside
+     phase 9b's worker): this process joins a one-rank NCCL world, and two
+     gloo ranks (`--parallel-rank`, started once phase 11a's CPU worker has
+     ended) share the card:
+     (a) the sharded Monte-Carlo (`parallel/mc.run_monte_carlo` with a mesh)
+     of the rocket at N = 15, B = 512, float32, kkt="fused", RTI 1/1, T = 3
+     on the NCCL rank, bit for bit the one-card run, K1/K2 launched; (b) the
+     same in float64 at B = 2 x 16 on the two gloo ranks against one rank:
+     flags and counts equal, X/U within 1e-9 relative; (c) the
+     column-sharded `fast_sls_solve` (`FastSLSOptions.column_mesh`) at the
+     rocket's widths, N = 60, B = 8, float64, kkt="fused", on 1 NCCL and 2
+     gloo ranks against the unsharded solve on the card within 1e-9, and the
+     ms of one sharded tube iteration at N = 30, 60, 120
+     (`tools/column_scaling.py`); (d) `entry.entry()` on the card against
+     the CPU within 1e-9 (float64) and `entry.dryrun_multichip(1)`, in a
+     worker of their own (`--entry-worker`, started with the gloo ranks).
 Every launch counter is zeroed just before each bench run and before phase
 9b (in its own process), and read just after. A wrapper counts a launch
 recorded into a CUDA graph once, at capture; a replay launches without it,
 so the bench record counts one replay's launches times the replays, and
 the kernels record's `launches` are the first run of each path's timed
 window, counted so. The last lines are the kernels record, the nvidia-smi
-line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`)
+line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`)
 runs a subset (phases 1 and 2 always run) and then prints neither result
 line; so does `--guarantee-alone`.
 """
@@ -119,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -176,7 +193,7 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the B = 1 latency loop of each bench run here (the bench twin alone runs
 # the reference's 200 steps): cut to keep the script inside its time limit
 LATENCY_STEPS = 50
-ALL_PHASES = range(3, 12)
+ALL_PHASES = range(3, 13)
 
 
 _START = time.perf_counter()
@@ -1202,14 +1219,241 @@ def check_frontend(seed_wl, devices=("cuda", "cpu")):
             f"{launches['factor_predictor']}/{launches['resolve']}, ms a solve {ms}")
 
 
-def start_worker(flag, log_name):
-    """This script in a second process with `flag`; its output goes to
+PAR_STEPS = 3
+PAR_N = 60
+PAR_HORIZONS = (30, 60, 120)
+PAR_GLOO = "chip_smoke_12_gloo.npz"
+PAR_ENTRY = "chip_smoke_12d.json"
+
+
+def mc_rocket(B, dtype):
+    """The MC driver's rocket (N = 15, RTI 1/1, kkt="fused") on the card and
+    its draws from seed 0: (solver, x0s, Ws)."""
+    from robust_nonlinear_mpc_torch.expe.main_monte_carlo_validation import (
+        configure,
+        draws,
+        make_problem,
+    )
+
+    m, solver, x_center, x_spread = make_problem("rocket", "cuda", dtype)
+    configure(solver, kkt="fused")
+    x0s, Ws = draws(m, x_center, x_spread, B, PAR_STEPS, 0)
+    return solver, x0s, Ws
+
+
+def column_problem(N=PAR_N, Bsz=8):
+    """`fast_sls_solve`'s inputs at the rocket's widths, N = 60, float64: the
+    deviation problem along the plant's own trajectory from the hover point
+    (the origin, + 0.02 randn, seed 1) under u = 0 (every lane's QPs are
+    feasible there), built on the CPU so that every process has the same
+    bits, then put on the card; and the solver, with the streaming response
+    and the fused Newton kernels."""
+    m, solver = make_rocket_problem(N, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(1)
+    xs = [torch.as_tensor(0.02 * rng.standard_normal((Bsz, NX)))]
+    U = torch.zeros((Bsz, N, NU), dtype=torch.float64)
+    for k in range(N):
+        xs.append(m.ddyn(xs[-1], U[:, k]))
+    X = torch.stack(xs, dim=1)
+    args = [t.cuda() for t in solver.assemble_deviation_problem(X, U, X[:, 0])]
+    solver.to("cuda")
+    solver.opts = solver.opts._replace(verbose=False, streaming_response=True,
+                                       ipm=solver.opts.ipm._replace(kkt="fused"))
+    return solver, args
+
+
+def column_solve(solver, args, mesh):
+    """One fast-SLS solve (RTI 1/1), column-sharded over `mesh` (None:
+    unsharded): X, U, backoff, success, QP iterations."""
+    from robust_nonlinear_mpc_torch.solvers.fast_sls import fast_sls_solve
+
+    m, N, Bsz = solver.m, solver.N, args[0].shape[0]
+    solver.opts = solver.opts._replace(column_mesh=mesh)
+    persist = FastSLSPersist.init(N, m.nx, m.nu, m.ni, m.ni_f, m.nw, batch=Bsz,
+                                  dtype=torch.float64, device="cuda", store_phi=False)
+    sol = fast_sls_solve(solver.prob, *args, persist, solver._fast_sls_opts())
+    return {"X": sol.X, "U": sol.U, "backoff": sol.backoff, "success": sol.success,
+            "qp_iters": sol.qp_iters}
+
+
+def scaling_ms(mesh, reps=10):
+    """ms of one sharded tube iteration (`tools/column_scaling.py`) at each
+    of PAR_HORIZONS."""
+    from robust_nonlinear_mpc_torch.tools.column_scaling import tube_iteration_ms
+
+    return {N: tube_iteration_ms(N, mesh, reps) for N in PAR_HORIZONS}
+
+
+def parallel_rank(rank, store):
+    """Phase 12's gloo rank `rank` of 2, both on the one card: (b) the
+    float64 rocket MC at B = 2 x 16, (c) the column-sharded fast-SLS solve
+    at N = 60 and the tube iteration's ms. Rank 0 writes the results."""
+    from robust_nonlinear_mpc_torch.parallel.distributed import init_distributed
+    from robust_nonlinear_mpc_torch.parallel.mc import run_monte_carlo
+    from robust_nonlinear_mpc_torch.parallel.mesh import scenario_mesh
+
+    torch.set_num_threads(1)
+    init_distributed(f"file://{store}", 2, rank, backend="gloo")
+    mesh = scenario_mesh(device="cuda")
+    fused_qp.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver, x0s, Ws = mc_rocket(32, torch.float64)
+    logs, stats = run_monte_carlo(solver, PAR_STEPS, x0s, Ws, mesh=mesh)
+    t_mc = time.perf_counter() - t0
+    launches = fused_qp.launch_counts()
+    col = column_solve(*column_problem(), mesh)
+    ms = scaling_ms(mesh)
+    if rank == 0:
+        out = {f"mc_{k}": v.cpu().numpy() for k, v in logs._asdict().items()}
+        out.update({f"col_{k}": v.cpu().numpy() for k, v in col.items()})
+        out["meta"] = json.dumps({"stats": list(stats), "mc_s": t_mc, "launches": launches,
+                                  "tube_ms": ms})
+        np.savez(OUT_DIR / PAR_GLOO, **out)
+    torch.distributed.destroy_process_group()
+
+
+def same_log(label, got, ref, rtol=None):
+    """Two dicts of tensors (or arrays): flags and counts equal; the float
+    fields bit for bit (rtol None) or within rtol relative to each field's
+    max |value|, NaN where ref has NaN. Returns the largest relative
+    difference."""
+    worst = 0.0
+    for f, b in ref.items():
+        a, b = torch.as_tensor(got[f]).cpu(), b.cpu()
+        if not b.is_floating_point():
+            if not torch.equal(a, b):
+                fail(f"[{label}] {f} differs on {int((a != b).sum())} entries")
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"[{label}] {f}: the NaN pattern differs")
+        scale = max(float(torch.nan_to_num(b).abs().max()), 1e-30)
+        d = float(torch.nan_to_num(a - b).abs().max()) / scale
+        worst = max(worst, d)
+        if (rtol is None and d != 0.0) or (rtol is not None and d > rtol):
+            fail(f"[{label}] {f} differs by {d:.3e} relative")
+    return worst
+
+
+def entry_phase():
+    """Phase 12 (d), in a worker of its own: `entry()` on the card against
+    the CPU (float64) and `dryrun_multichip(1)`, which starts its own
+    one-rank NCCL world. Writes chiprun_out/`PAR_ENTRY`."""
+    from robust_nonlinear_mpc_torch import entry as port_entry
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fn, a = port_entry.entry(device=device, dtype=torch.float64)
+        t0 = time.perf_counter()
+        outs[device] = (fn(*a), time.perf_counter() - t0)
+    diffs = [rel_err(c.double().cpu(), h.double())[0]
+             for c, h in zip(outs["cuda"][0], outs["cpu"][0])]
+    if max(diffs) > 1e-9:
+        fail(f"[12d] entry() on the card against the CPU: {diffs}")
+    t0 = time.perf_counter()
+    dry = port_entry.dryrun_multichip(1)
+    t_dry = time.perf_counter() - t0
+    say(f"[12d] entry() card ({outs['cuda'][1]:.2f} s) against CPU "
+        f"({outs['cpu'][1]:.2f} s): max relative diff {max(diffs):.2e}; "
+        f"dryrun_multichip(1) {t_dry:.1f} s: {dry}")
+    (OUT_DIR / PAR_ENTRY).write_text(json.dumps({
+        "entry_max_rel": max(diffs), "entry_card_s": outs["cuda"][1],
+        "entry_cpu_s": outs["cpu"][1], "dryrun_s": t_dry, "dryrun": dry}))
+
+
+def check_parallel(gloo, entry_worker):
+    """Phase 12: the multi-device layer (`parallel/`) on the card. (a) and
+    (c, W = 1) on a one-rank NCCL world in this process, (b) and (c, W = 2)
+    read from the two gloo ranks started after phase 11, (d) the entry
+    points from their own worker, started with them."""
+    from robust_nonlinear_mpc_torch.parallel.distributed import init_distributed
+    from robust_nonlinear_mpc_torch.parallel.mc import run_monte_carlo
+    from robust_nonlinear_mpc_torch.parallel.mesh import scenario_mesh
+
+    t_phase = time.perf_counter()
+    init_distributed(backend="nccl")
+    mesh = scenario_mesh()
+    record = {}
+    try:
+        # (a) full width, float32, W = 1 over NCCL against the one-card run
+        solver, x0s, Ws = mc_rocket(512, torch.float32)
+        t0 = time.perf_counter()
+        ref, ref_stats = run_monte_carlo(solver, PAR_STEPS, x0s, Ws)
+        t_ref = time.perf_counter() - t0
+        fused_qp.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, stats = run_monte_carlo(solver, PAR_STEPS, x0s, Ws, mesh=mesh)
+        t_got = time.perf_counter() - t0
+        launches = fused_qp.launch_counts()
+        if min(launches["factor_predictor"], launches["resolve"]) <= 0:
+            fail(f"[12a] the sharded MC did not launch K1/K2: {launches}")
+        same_log("12a", got._asdict(), ref._asdict())
+        if tuple(stats) != tuple(ref_stats):
+            fail(f"[12a] statistics {stats} != {ref_stats}")
+        say(f"[12a] sharded rocket MC N=15 B=512 f32 T={PAR_STEPS}, 1 NCCL rank: bit for bit "
+            f"the one-card run ({t_got:.1f} s, one card {t_ref:.1f} s), success "
+            f"{float(got.success.float().mean()):.4f}, {stats}, launches {launches}")
+        record["12a"] = {"s": t_got, "one_card_s": t_ref, "stats": list(stats),
+                         "launches": launches}
+
+        # (b) float64, B = 2 x 16: the two gloo ranks against one rank
+        solver, x0s, Ws = mc_rocket(32, torch.float64)
+        t0 = time.perf_counter()
+        one, one_stats = run_monte_carlo(solver, PAR_STEPS, x0s, Ws, mesh=mesh)
+        t_one = time.perf_counter() - t0
+        join_worker(*gloo[0], "12")
+        join_worker(*gloo[1], "12")
+        two = dict(np.load(OUT_DIR / PAR_GLOO))
+        meta = json.loads(str(two["meta"]))
+        worst = same_log("12b", {k: two[f"mc_{k}"] for k in one._fields}, one._asdict(),
+                         rtol=1e-9)
+        counts = lambda st: (st[0], st[1], st[4])   # scenarios, violations, failed lanes
+        if counts(meta["stats"]) != counts(one_stats):
+            fail(f"[12b] counts {meta['stats']} != {one_stats}")
+        if min(meta["launches"]["factor_predictor"], meta["launches"]["resolve"]) <= 0:
+            fail(f"[12b] the gloo ranks did not launch K1/K2: {meta['launches']}")
+        say(f"[12b] rocket MC B=2x16 f64 T={PAR_STEPS}: 2 gloo ranks on one card "
+            f"({meta['mc_s']:.1f} s, contended) against 1 rank ({t_one:.1f} s): flags and "
+            f"counts equal, max relative diff {worst:.2e}, success "
+            f"{float(one.success.float().mean()):.4f}")
+        record["12b"] = {"two_rank_s": meta["mc_s"], "one_rank_s": t_one, "max_rel": worst,
+                         "launches_rank0": meta["launches"]}
+
+        # (c) column-sharded fast-SLS at N = 60, and the tube iteration's ms
+        solver, args = column_problem()
+        dense = column_solve(solver, args, None)
+        fused_qp.reset_launch_counts()
+        one_col = column_solve(solver, args, mesh)
+        col_launches = fused_qp.launch_counts()
+        worst_c = {"W=1": same_log("12c W=1", one_col, dense, rtol=1e-9),
+                   "W=2": same_log("12c W=2", {k: two[f"col_{k}"] for k in dense}, dense,
+                                   rtol=1e-9)}
+        ms1, ms2 = scaling_ms(mesh), {int(k): v for k, v in meta["tube_ms"].items()}
+        say(f"[12c] column-sharded fast_sls_solve rocket N={PAR_N} B=8 f64 kkt=fused against "
+            f"the unsharded solve: max relative diff {worst_c}, success "
+            f"{dense['success'].tolist()}, QP iterations {dense['qp_iters'].tolist()}, "
+            f"launches {col_launches}; sharded tube iteration ms (N: 1 NCCL rank / 2 gloo "
+            f"ranks) " + ", ".join(f"{N}: {ms1[N]:.2f} / {ms2[N]:.2f}" for N in PAR_HORIZONS))
+        record["12c"] = {"max_rel": worst_c, "tube_ms_1rank": ms1, "tube_ms_2rank_gloo": ms2,
+                         "launches": col_launches}
+
+        # (d) the entry points, from their worker
+        join_worker(*entry_worker, "12d")
+        record["12d"] = json.loads((OUT_DIR / PAR_ENTRY).read_text())
+    finally:
+        torch.distributed.destroy_process_group()
+    record["phase_s"] = time.perf_counter() - t_phase
+    (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(record, indent=1))
+    say(f"[12] phase 12 took {record['phase_s']:.1f} s")
+
+
+def start_worker(log_name, *flags):
+    """This script in a second process with `flags`; its output goes to
     chiprun_out/`log_name`."""
     import subprocess
 
     OUT_DIR.mkdir(exist_ok=True)
     log = open(OUT_DIR / log_name, "w")
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag],
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *flags],
                             stdout=log, stderr=subprocess.STDOUT)
     return proc, log
 
@@ -1235,12 +1479,15 @@ def join_worker(proc, log, label, timeout=900):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     ap.add_argument("--phases", default="all",
-                    help="comma-separated subset of 3-11 to run after phases 1-2 (default: all)")
+                    help="comma-separated subset of 3-12 to run after phases 1-2 (default: all)")
     ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
                     help="run only phase 9b, alone on the card after the build, with the "
                          "seed and the steps timed or every stage timed; no result lines")
     ap.add_argument("--guarantee-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--compare-reference", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-store", help=argparse.SUPPRESS)
+    ap.add_argument("--entry-worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
@@ -1248,6 +1495,19 @@ def main(argv=None):
         # the seed needs no kernel; the first K1 launch loads the extension
         # that the main process builds meanwhile
         guarantee_mode(stages=True)
+        return 0
+    if args.parallel_rank is not None or args.entry_worker:
+        # phase 12's workers run at a lower priority: phase 9b's host-bound
+        # worker, which sets the script's length, keeps the cores first
+        os.nice(10)
+    if args.parallel_rank is not None:
+        # one of phase 12's two gloo ranks
+        parallel_rank(args.parallel_rank, args.parallel_store)
+        return 0
+    if args.entry_worker:
+        # beside the main process and the other workers: two cores
+        torch.set_num_threads(2)
+        entry_phase()
         return 0
     if args.compare_reference:
         # phase 11a's CPU run, beside the main process
@@ -1271,9 +1531,9 @@ def main(argv=None):
     # seed needs no kernel; phase 11a's reference needs no card)
     workers = {}
     if 9 in run:
-        workers["9b"] = start_worker("--guarantee-worker", "chip_smoke_9b.log")
+        workers["9b"] = start_worker("chip_smoke_9b.log", "--guarantee-worker")
     if 11 in run:
-        workers["11a"] = start_worker("--compare-reference", "chip_smoke_11a_cpu.log")
+        workers["11a"] = start_worker("chip_smoke_11a_cpu.log", "--compare-reference")
     try:
         t0 = time.perf_counter()
         cuda_lib.build_extension(verbose=True)
@@ -1294,6 +1554,17 @@ def main(argv=None):
         if 11 in run:
             check_compare(workers["11a"])
             check_frontend(wls["6"])
+        if 12 in run:
+            # phase 12's two gloo ranks share the card and its entry worker
+            # runs beside them; they start once phase 11a's CPU worker has
+            # ended, so phase 9b's seed runs beside one worker at a time
+            store = OUT_DIR / "chip_smoke_12_store"
+            store.unlink(missing_ok=True)
+            gloo = [start_worker(f"chip_smoke_12_rank{r}.log", "--parallel-rank", str(r),
+                                 "--parallel-store", str(store.resolve())) for r in (0, 1)]
+            workers.update({f"12r{r}": w for r, w in enumerate(gloo)})
+            workers["12d"] = start_worker("chip_smoke_12d.log", "--entry-worker")
+            check_parallel(gloo, workers["12d"])
         if 9 in run:
             check_converged()
             join_worker(*workers["9b"], "9b")

@@ -1,5 +1,5 @@
 """Monte-Carlo tube validation: batched disturbance-realization closed-loop
-rollouts on one card (port of
+rollouts on one card or sharded over a scenario mesh (port of
 `robust_nonlinear_mpc_tpu/expe/main_monte_carlo_validation.py`).
 
 B closed-loop scenarios of the chosen system run as one batch; the x0 and
@@ -16,17 +16,27 @@ driver's order, so lane b here is lane b of a JAX run. Reported:
 The statistics, the artifact's keys and its tag are the JAX driver's. The
 type is float32 on the card and float64 on the CPU, as the JAX driver runs
 float32 on the TPU and float64 on the CPU; `--kkt` applies in both types
-(the JAX driver applies it in float32 only). There is
-one device: `--host-devices` is not ported and "devices" is 1.
+(the JAX driver applies it in float32 only).
+
+The mesh is one process per device (`parallel/mesh.py`): on the CPU,
+`--host-devices W` starts W gloo processes (the counterpart of the JAX
+driver's W virtual devices; the default here is 1, the JAX driver's 8); on
+cards, one rank per GPU under torchrun. B is rounded down to a multiple of
+W x chunks, every rank draws the same global ensemble, so lane b is still
+lane b, and rank 0 alone writes the artifact ("devices" is W).
 
 Usage:
   python -m robust_nonlinear_mpc_torch.expe.main_monte_carlo_validation --run \\
-      [--system rocket] [--scenarios 256] [--steps 10] [--device cuda|cpu]
+      [--system rocket] [--scenarios 256] [--steps 10] [--device cuda|cpu] \\
+      [--host-devices W]
+  torchrun --nproc-per-node W -m robust_nonlinear_mpc_torch.expe.main_monte_carlo_validation \\
+      --run --device cuda [...]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -220,8 +230,11 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
              kkt="riccati", converged=False, adaptive=False,
              scp_eps=None, max_iter_scp=None, chunks=1, scp_per_dispatch=2,
              soft_fallback=False, restoration=False, qp_tol=None,
-             stall_damping=0.0):
-    """Run the validation and save its artifact; returns the npz path."""
+             stall_damping=0.0, mesh=None):
+    """Run the validation and save its artifact; returns the npz path. With
+    a scenario `mesh` every rank calls this with the same arguments and
+    rolls out its block of each chunk; rank 0 writes the artifact and
+    returns its path, the other ranks return None."""
     from robust_nonlinear_mpc_torch.expe._common import save_results
     from robust_nonlinear_mpc_torch.parallel.mc import MCStats, run_monte_carlo
     from robust_nonlinear_mpc_torch.sim.closed_loop import build_chunked_converged_loop
@@ -235,21 +248,26 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
               max_iter_scp=max_iter_scp, soft_fallback=soft_fallback,
               restoration=restoration, qp_tol=qp_tol, stall_damping=stall_damping)
 
-    n_dev = 1
+    n_dev = 1 if mesh is None else mesh.size
     chunks = max(1, int(chunks))
-    B = (scenarios // chunks) * chunks
+    B = (scenarios // (n_dev * chunks)) * n_dev * chunks
     if B == 0:
-        raise ValueError(f"scenarios={scenarios} < chunks={chunks}: a chunk would be empty")
+        raise ValueError(
+            f"scenarios={scenarios} < devices*chunks={n_dev * chunks}: "
+            f"the per-chunk shard would be empty. Raise --scenarios, lower "
+            f"--chunks, or (on CPU) lower --host-devices."
+        )
     Bc = B // chunks
     x0s_h, Ws_h = draws(m, x_center, x_spread, B, steps, seed)
 
     rollout = None
     if converged and scp_per_dispatch > 0:
         rollout = build_chunked_converged_loop(solver, steps, scp_per_dispatch=scp_per_dispatch)
+    run = lambda x0s, Ws: run_monte_carlo(solver, steps, x0s, Ws, mesh=mesh, rollout=rollout)
     logs_np, stats_list = [], []
     for c in range(chunks):
         sl = slice(c * Bc, (c + 1) * Bc)
-        lc, sc = run_monte_carlo(solver, steps, x0s_h[sl], Ws_h[sl], rollout=rollout)
+        lc, sc = run(x0s_h[sl], Ws_h[sl])
         logs_np.append({k: v.detach().cpu().numpy() for k, v in lc._asdict().items()})
         stats_list.append(sc)
     logs = {k: np.concatenate([lg[k] for lg in logs_np], axis=0) for k in logs_np[0]}
@@ -285,6 +303,8 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
         "devices": int(n_dev),
         **statistics(logs, stats, m, steps),
     }
+    if mesh is not None and mesh.rank != 0:
+        return None
     r = results
     print(
         f"[mc] {system}: {B} scenarios x {steps} steps on {n_dev} device(s) — "
@@ -344,15 +364,43 @@ def main(argv=None):
                    help="feasibility restoration on an inner infeasible-forward event")
     p.add_argument("--soft-fallback", action="store_true", dest="soft_fallback",
                    help="soft-slack cold-start fallback for the lanes whose hard SQP failed")
+    p.add_argument("--host-devices", type=int, default=1, dest="host_devices",
+                   help="--device cpu: run the mesh as this many gloo processes (the JAX "
+                        "driver's virtual CPU devices); on cards run one rank per GPU under "
+                        "torchrun instead")
     args = p.parse_args(argv)
-    return generate(args.system, args.scenarios, args.steps, args.device, args.seed,
-                    recycle=args.recycle, streaming=args.streaming, warm_qp=args.warm_qp,
-                    qp_iters=args.qp_iters, kkt=args.kkt, converged=args.converged,
-                    adaptive=args.adaptive, scp_eps=args.scp_eps,
-                    max_iter_scp=args.max_iter_scp, chunks=args.chunks,
-                    scp_per_dispatch=args.scp_per_dispatch,
-                    soft_fallback=args.soft_fallback, restoration=args.restoration,
-                    qp_tol=args.qp_tol, stall_damping=args.stall_damping)
+    kw = dict(recycle=args.recycle, streaming=args.streaming, warm_qp=args.warm_qp,
+              qp_iters=args.qp_iters, kkt=args.kkt, converged=args.converged,
+              adaptive=args.adaptive, scp_eps=args.scp_eps,
+              max_iter_scp=args.max_iter_scp, chunks=args.chunks,
+              scp_per_dispatch=args.scp_per_dispatch,
+              soft_fallback=args.soft_fallback, restoration=args.restoration,
+              qp_tol=args.qp_tol, stall_damping=args.stall_damping)
+    pos = (args.system, args.scenarios, args.steps, args.device, args.seed)
+    if "WORLD_SIZE" in os.environ:
+        # under torchrun: this process is one rank of the world
+        return generate_on_mesh(pos, kw)
+    if args.host_devices > 1:
+        if args.device != "cpu":
+            raise ValueError("--host-devices starts CPU processes; on cards run one rank per "
+                             "GPU under torchrun")
+        from robust_nonlinear_mpc_torch.parallel.distributed import launch
+
+        return launch(generate_on_mesh, args.host_devices, pos, kw, backend="gloo")
+    return generate(*pos, **kw)
+
+
+def generate_on_mesh(pos, kw):
+    """`generate` as one rank of the world (started by `launch` or torchrun),
+    on the mesh of every rank."""
+    from robust_nonlinear_mpc_torch.parallel.distributed import (
+        global_scenario_mesh,
+        init_distributed,
+    )
+
+    backend = "nccl" if pos[3] == "cuda" else "gloo"
+    init_distributed(backend=backend)
+    return generate(*pos, **kw, mesh=global_scenario_mesh())
 
 
 if __name__ == "__main__":

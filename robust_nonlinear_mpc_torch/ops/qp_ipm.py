@@ -108,7 +108,7 @@ class IPMOptions(NamedTuple):
 
 KKT_SOLVERS = ("riccati", "fused", "fused_iter")
 _NOT_PORTED_KKT = {
-    "condensed": "ROADMAP.md Open items, queue 1 item 7 (research options)",
+    "condensed": "ROADMAP.md Open items, queue 1 item 3 (research options)",
     "pallas": "use kkt='fused', the port's name for the fused Newton kernels",
     "pallas_iter": "use kkt='fused_iter', the port's name for the whole-iteration kernel",
 }

@@ -1,10 +1,18 @@
 """fast-SLS tube synthesis: dual extraction, the column-wise backward
 Riccati, the Phi-free streaming response and the Phi-materializing stages
 (propagation, backoffs, tube cost). Port of the GEMM-folded and the
-triangular column-blocked forms and of `propagate` / `backoff_from_phi` /
+triangular column-blocked forms, of the per-column forms (`riccati_column`,
+`response_column` and the dense `backward_solve` / `response_streaming`
+built on them) and of `propagate` / `backoff_from_phi` /
 `tube_cost` in `robust_nonlinear_mpc_tpu/ops/sls_kernels.py`. The JAX
 package writes the folded and the blocked forms out twice; here each has one
 body, the blocked one, and the folded form is its single-segment case.
+
+The per-column forms take an explicit column-index tensor `js` (C,): any
+subset of 0..N, or the sentinel N + 1 for a padded column, which
+contributes exactly zero. They are batched over lanes and over the columns
+(the JAX package vmaps one column); `parallel/columns.py` gives each rank a
+slab of them.
 
 Everything here is plain torch: the JAX package computes these stages with
 XLA outside any Pallas kernel (the hand-written backward is
@@ -103,6 +111,105 @@ def backward_solve_folded(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
     `backward_solve_blocked` in one segment, which carries the N columns that
     can be active (the terminal column never is)."""
     return backward_solve_blocked(A, B, Gmat, Gf, eta, eta_f, regs, block=A.shape[1])
+
+
+def riccati_step(A, B, Cx, Cu, Sk):
+    """One Riccati step over any leading batch axes:
+    K = -(Cu + B'SB)^-1 B'SA and S = sym(Cx + A'S(A + BK))."""
+    x = B.transpose(-1, -2) @ Sk
+    y = A.transpose(-1, -2) @ Sk
+    H = Cu + x @ B
+    F = x @ A
+    K = -spd_solve_small(sym(H), F)
+    S = Cx + y @ (A + B @ K)
+    return K, sym(S)
+
+
+def riccati_column(js, eta_cols, eta_f_cols, A, B, Gmat, Gf, regs: SLSRegs):
+    """Backward Riccati of the SLS columns `js` (C,), masked to the stages
+    k >= j: eta_cols (B, C, N, ni) holds eta[:, j] and eta_f_cols (B, C,
+    ni_f) eta_f[j] of each column. Returns S_col (B, C, N+1, nx, nx) and
+    K_col (B, C, N, nu, nx). A padded column (j = N + 1) is never active:
+    its K and its stage S are zero, its terminal S the regularizer."""
+    N, nx = A.shape[1], A.shape[2]
+    Gx, Gu = Gmat[:, :nx], Gmat[:, nx:]
+    SN = Gf.T @ (eta_f_cols[..., :, None] * Gf) + regs.Q_reg_f
+    S = SN
+    K_st, S_st = [None] * N, [None] * N
+    for k in reversed(range(N)):
+        eta_k = eta_cols[:, :, k, :, None]
+        Cxx = Gx.T @ (eta_k * Gx) + regs.Q_reg
+        Cuu = Gu.T @ (eta_k * Gu) + regs.R_reg
+        K_k, S_k = riccati_step(A[:, k, None], B[:, k, None], Cxx, Cuu, S)
+        active = (k >= js)[None, :, None, None]
+        S_st[k] = torch.where(active, S_k, torch.zeros_like(S_k))
+        K_st[k] = torch.where(active, K_k, torch.zeros_like(K_k))
+        S = torch.where(active, S_k, S)
+    return torch.stack(S_st + [SN], dim=2), torch.stack(K_st, dim=2)
+
+
+def eta_columns(eta):
+    """(B, N, N, ni) stage-major eta -> (B, N+1, N, ni) column-major, with the
+    empty terminal column appended (column N has no stage etas)."""
+    return torch.cat([eta.transpose(1, 2), eta.new_zeros(eta[:, :1].shape)], dim=1)
+
+
+def backward_solve(A, B, Gmat, Gf, eta, eta_f, regs: SLSRegs):
+    """The per-column backward Riccati over all N + 1 columns, in the dense
+    (stage, column) layout: S (B, N+1, N+1, nx, nx), K (B, N, N+1, nu, nx).
+    Equals `backward_solve_folded` to rounding."""
+    js = torch.arange(A.shape[1] + 1, device=A.device)
+    S_all, K_all = riccati_column(js, eta_columns(eta), eta_f, A, B, Gmat, Gf, regs)
+    return S_all.transpose(1, 2), K_all.transpose(1, 2)
+
+
+def response_column(js, K_cols, A, B, E, Gx, Gu, Gf, regs: SLSRegs, epsilon):
+    """Streaming response of the SLS columns `js` (C,): Phi_x[:, j] propagated
+    through A_k + B_k K[k, j] with the column's row norms and tube-cost terms
+    accumulated, Phi never stored. K_cols (B, C, N, nu, nx) holds K[:, j].
+    Returns beta_cols (B, C, N, ni) (zero for stages k < j), beta_f (B, C,
+    ni_f) and the squared tube-cost contribution cost_sq (B, C). A padded
+    column (j = N + 1) propagates zeros and contributes exactly zero to every
+    output (the epsilon floor is masked)."""
+    N = A.shape[1]
+    col = lambda m: m[None, :, None, None]
+    phi = A.new_zeros(K_cols.shape[:2] + (A.shape[2], E.shape[2]))
+    betas, costs = [], []
+    for k in range(N):
+        phi = torch.where(col(js == k), E[k], phi)
+        K_k = K_cols[:, :, k]
+        phi_u = K_k @ phi
+        Z = Gx @ phi + Gu @ phi_u
+        active = (k >= js)[None, :, None]
+        betas.append(torch.where(active, torch.clamp((Z * Z).sum(dim=-1), min=epsilon),
+                                 torch.zeros_like(Z[..., 0])))
+        qx = regs.Q_reg @ phi
+        ru = regs.R_reg @ phi_u
+        costs.append((qx * qx).sum(dim=(-1, -2)) + (ru * ru).sum(dim=(-1, -2)))
+        nxt = (A[:, k, None] + B[:, k, None] @ K_k) @ phi
+        phi = torch.where(active[..., None], nxt, torch.zeros_like(nxt))
+    last = torch.where(col(js == N), E[N], phi)
+    Zf = Gf @ last
+    live = (js <= N)[None, :, None]
+    beta_f = torch.where(live, torch.clamp((Zf * Zf).sum(dim=-1), min=epsilon),
+                         torch.zeros_like(Zf[..., 0]))
+    qf = regs.Q_reg_f @ last
+    cost_sq = torch.stack(costs, dim=-1).sum(dim=-1) + (qf * qf).sum(dim=(-1, -2))
+    return torch.stack(betas, dim=2), beta_f, cost_sq
+
+
+def response_streaming(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon):
+    """The Phi-free streaming response in its per-column form (the JAX
+    `response_streaming`): `response_column` over all N + 1 columns, then
+    the three cross-column reductions (backoff, backoff_f, tube cost). Same
+    outputs as `response_streaming_folded`."""
+    N = A.shape[1]
+    js = torch.arange(N + 1, device=A.device)
+    beta_c, beta_f, cost_sq = response_column(js, K.transpose(1, 2), A, B, E, Gx, Gu, Gf,
+                                              regs, epsilon)
+    beta = beta_c[:, :N].transpose(1, 2)
+    return (beta, beta_f, torch.sqrt(beta).sum(dim=2), torch.sqrt(beta_f).sum(dim=1),
+            torch.sqrt(cost_sq.sum(dim=1)))
 
 
 def response_streaming_blocked(A, B, E, K, Gx, Gu, Gf, regs: SLSRegs, epsilon, block=8):
@@ -224,3 +331,14 @@ def tube_cost(Phi_x, Phi_u, regs: SLSRegs):
     ru = torch.einsum("ab,zkjbw->zkjaw", regs.R_reg, Phi_u)
     sq = lambda t: (t * t).reshape(t.shape[0], -1).sum(dim=1)
     return torch.sqrt(sq(qx) + sq(qf) + sq(ru))
+
+
+def tensor_to_matrix(t):
+    """(..., P, M, n, m) block tensor -> (..., P n, M m) block matrix."""
+    P, M, n, m = t.shape[-4:]
+    return t.transpose(-3, -2).reshape(t.shape[:-4] + (P * n, M * m))
+
+
+def matrix_to_tensor(mat, P, M, n, m):
+    """(..., P n, M m) block matrix -> (..., P, M, n, m) block tensor."""
+    return mat.reshape(mat.shape[:-2] + (P, n, M, m)).transpose(-3, -2)

@@ -1,8 +1,10 @@
-"""Monte-Carlo closed-loop rollouts and tube-violation statistics on one
-card (port of `MCStats`, `lane_reductions` and, in place of
-`make_sharded_mc` / `run_monte_carlo`, a one-card `run_monte_carlo` from
-`robust_nonlinear_mpc_tpu/parallel/mc.py`). The multi-process reduction is
-ROADMAP.md Open items, queue 1 item 6 (parallel).
+"""Monte-Carlo closed-loop rollouts and tube-violation statistics, on one
+card or sharded over a scenario mesh (port of
+`robust_nonlinear_mpc_tpu/parallel/mc.py`). Scenarios never communicate:
+each rank rolls out its block of the batch, and the statistics reduce over
+the mesh (psum -> all_reduce(SUM) for the counts and the cost sum, pmax ->
+all_reduce(MAX) for the worst margin); the logs are gathered into the
+global layout on every rank.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from robust_nonlinear_mpc_torch.parallel.mesh import Mesh, all_reduce, shard_batch, sharded
 from robust_nonlinear_mpc_torch.sim.closed_loop import build_batched_closed_loop
 
 
@@ -43,24 +46,56 @@ def lane_reductions(logs, G, g, Q, R):
     return lane_ok, worst, cost
 
 
-def mc_stats(logs, solver) -> MCStats:
-    """The aggregate of one batch of logs."""
+def _aggregate(logs, solver, reduce) -> MCStats:
+    """The statistics of the lanes of `logs`, each partial sum and maximum
+    passed through `reduce(tensor, op)` (identity on one card, all_reduce
+    over a mesh): mean_cost = the cost sum over the successful lanes /
+    max(n_ok, 1)."""
     m = solver.m
     lane_ok, worst, cost = lane_reductions(logs, m.G, m.g, solver.Q, solver.R)
-    n_ok = int(lane_ok.sum())
+    counts = torch.stack([
+        torch.tensor(lane_ok.numel(), device=lane_ok.device), (worst > 0).sum(), lane_ok.sum(),
+        (~lane_ok).sum(),
+    ]).to(torch.int64)
+    n_scen, n_viol, n_ok, n_failed = reduce(counts, "sum").tolist()
+    worst_ok = reduce(torch.where(lane_ok, worst, -torch.inf).amax(), "max")
+    cost_sum = reduce(torch.where(lane_ok, cost, torch.zeros_like(cost)).sum(), "sum")
     return MCStats(
-        n_scenarios=int(lane_ok.numel()),
-        n_violations=int((worst > 0).sum()),
-        worst_margin=float(worst[lane_ok].max()) if n_ok else float("-inf"),
-        mean_cost=float(cost[lane_ok].mean()) if n_ok else float("nan"),
-        n_failed_lanes=int((~lane_ok).sum()),
+        n_scenarios=n_scen, n_violations=n_viol, worst_margin=float(worst_ok),
+        mean_cost=float(cost_sum / max(n_ok, 1)), n_failed_lanes=n_failed,
     )
 
 
-def run_monte_carlo(solver, sim_steps, x0s, Ws, rollout=None):
-    """Roll out every scenario on the solver's device and aggregate:
-    (ClosedLoopLog, MCStats). `rollout` defaults to
+def mc_stats(logs, solver) -> MCStats:
+    """The aggregate of one batch of logs."""
+    return _aggregate(logs, solver, lambda t, op: t)
+
+
+def make_sharded_mc(solver, sim_steps: int, mesh: Mesh, rollout=None):
+    """fn(x0s (B, nx), Ws (B, T, nw)) -> (ClosedLoopLog, MCStats) over the
+    mesh: every rank calls it with the same global inputs (B divisible by
+    the mesh size), rolls out its own block with `rollout` (default
+    `build_batched_closed_loop(solver, sim_steps)`), and gets the global log
+    and the statistics of its own block reduced over every rank."""
+    run = sharded(mesh, rollout or build_batched_closed_loop(solver, sim_steps))
+    dev = solver.Q.device
+
+    def fn(x0s, Ws):
+        logs = run(x0s, Ws)
+        stats = _aggregate(shard_batch(mesh, logs), solver,
+                           lambda t, op: all_reduce(mesh, t.to(dev), op))
+        return logs, stats
+
+    return fn
+
+
+def run_monte_carlo(solver, sim_steps, x0s, Ws, mesh: Mesh | None = None, rollout=None):
+    """Roll out every scenario and aggregate: (ClosedLoopLog, MCStats). One
+    card when `mesh` is None, else sharded over the mesh
+    (`make_sharded_mc`). `rollout` defaults to
     `build_batched_closed_loop(solver, sim_steps)`."""
+    if mesh is not None:
+        return make_sharded_mc(solver, sim_steps, mesh, rollout)(x0s, Ws)
     if rollout is None:
         rollout = build_batched_closed_loop(solver, sim_steps)
     logs = rollout(x0s, Ws)

@@ -17,7 +17,8 @@
 * `build_chunked_converged_loop`: the until-convergence closed loop with the
   soft fallback in `soft_fallback_chunk(N)` chunks; otherwise
   `build_batched_closed_loop` (the JAX driver's bounded dispatches have no
-  counterpart here, so `scp_per_dispatch` changes nothing).
+  counterpart here, so `scp_per_dispatch` changes nothing); with a scenario
+  mesh each rank runs its block of the lanes and the log is gathered.
 * `run_closed_loop`: the experiment-parity host loop around the stateful
   `SCPSLSSolver`, with the reference npz keys.
 
@@ -499,15 +500,16 @@ def build_chunked_converged_loop(solver: SCPSLSSolver, sim_steps: int,
     and runs only the undecided lanes, so `scp_per_dispatch` is accepted for
     parity and changes nothing.
 
-    Returns run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog. One card: a
-    `mesh` other than None raises (the multi-device drivers are ROADMAP.md
-    Open items, queue 1 item 6)."""
+    Returns run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog. With a scenario
+    `mesh` (`parallel.mesh.Mesh`) every rank calls run with the same global
+    inputs (B divisible by the mesh size), runs the undecided-lane loop on
+    its own block and returns the log gathered into the global layout."""
+    from robust_nonlinear_mpc_torch.parallel.mesh import Mesh, sharded
     from robust_nonlinear_mpc_torch.solvers.soft_nlp import soft_fallback_chunk
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the scenario mesh is not ported: ROADMAP.md Open items, queue 1 item 6 (parallel)"
-        )
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
     if int(solver.opts.rti) > 0:
         raise ValueError("the chunked driver is for the until-convergence mode (rti <= 0)")
-    return _closed_loop(solver, sim_steps, fallback_chunk=soft_fallback_chunk(solver.N))
+    run = _closed_loop(solver, sim_steps, fallback_chunk=soft_fallback_chunk(solver.N))
+    return run if mesh is None else sharded(mesh, run)

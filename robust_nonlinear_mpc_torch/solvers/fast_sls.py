@@ -16,9 +16,9 @@ streaming response: folded (0), column-blocked (> 0), or the hand-written
 backward kernel with the blocked response (-1). The response is one of
 three (`compute_response`): the Phi-free streaming form, the
 Phi-materializing stages, or the fused CUDA kernel (`use_pallas_response`,
-`ops/fused_response.py`).
-
-Not ported (it raises NotImplementedError): column sharding.
+`ops/fused_response.py`). With `column_mesh` (a `parallel.mesh.Mesh`) the
+backward Riccati and the streaming response run column-sharded over the
+mesh (`parallel/columns.py`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -195,18 +195,12 @@ def select_sls_kernels(block: int):
     return backward_solve_folded, response_streaming_folded
 
 
-def _check_options(opts: FastSLSOptions):
-    if opts.column_mesh is not None:
-        raise NotImplementedError(
-            "column sharding is not ported: ROADMAP.md Open items, queue 1 item 6 (parallel)"
-        )
-
-
 def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x, phi_like_u):
     """Propagation + backoffs + tube cost by the configured path: the fused
     CUDA kernel (float32, cast back), the streaming form that
-    `select_sls_kernels(opts.sls_block)` picks (zero Phi buffers shaped like
-    `phi_like_*`) or the Phi-materializing stages. Returns
+    `select_sls_kernels(opts.sls_block)` picks, or its column-sharded form
+    whenever `opts.column_mesh` is set (zero Phi buffers shaped like
+    `phi_like_*`), or the Phi-materializing stages. Returns
     (Phi_x, Phi_u, beta, beta_f, backoff, backoff_f, cost_tube)."""
     stat, eps = prob.stat, opts.epsilon_backoff
     if opts.use_pallas_response:
@@ -214,8 +208,13 @@ def compute_response(prob: SLSProblem, A, B, K, opts: FastSLSOptions, phi_like_x
 
         out = fused_response(A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, *prob.regs, eps=eps)
         return tuple(t.to(A.dtype) for t in out)
-    if opts.streaming_response:
-        response_streaming = select_sls_kernels(opts.sls_block)[1]
+    if opts.streaming_response or opts.column_mesh is not None:
+        if opts.column_mesh is not None:
+            from robust_nonlinear_mpc_torch.parallel.columns import column_sharded_response
+
+            response_streaming = functools.partial(column_sharded_response, opts.column_mesh)
+        else:
+            response_streaming = select_sls_kernels(opts.sls_block)[1]
         nbeta, nbeta_f, nboff, nboff_f, ct = response_streaming(
             A, B, prob.E, K, stat.Gx, stat.Gu, stat.Gf, prob.regs, eps
         )
@@ -284,8 +283,13 @@ def fast_sls_solve(
     qu (B, N, nu), g_res (B, N, ni), gf_res (B, ni_f), xinit_dev (B, nx).
     `opts.recycle_eta` selects the one-QP dual-recycling branch, else the
     two-QP iteration runs (RTI when `opts.rti_steps` > 0)."""
-    _check_options(opts)
-    bwd_solve = select_sls_kernels(opts.sls_block)[0]
+    if opts.column_mesh is not None:
+        from robust_nonlinear_mpc_torch.parallel.columns import column_sharded_backward_solve
+
+        gains = functools.partial(column_sharded_backward_solve, opts.column_mesh)
+    else:
+        solve = select_sls_kernels(opts.sls_block)[0]
+        gains = lambda *a: solve(*a)[1]
     Bsz, N, nx = c.shape
     nu = B.shape[3]
     ni, ni_f = prob.stat.Gx.shape[0], prob.stat.Gf.shape[0]
@@ -338,7 +342,7 @@ def fast_sls_solve(
     if opts.recycle_eta:
         # dual-recycling RTI: K from the persisted eta, one tightened QP
         with stage("sls.backward"):
-            K_r = bwd_solve(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)[1]
+            K_r = gains(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)
         with stage("sls.response"):
             Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
                 prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
@@ -394,7 +398,7 @@ def fast_sls_solve(
         sol = carry.sol
         eta, eta_f = evaluate_dual_eta(sol.lam, sol.lam_f, carry.beta, carry.beta_f, eps)
         with stage("sls.backward"):
-            K = bwd_solve(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)[1]
+            K = gains(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)
         with stage("sls.response"):
             Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
                 prob, A, B, K, opts, carry.Phi_x, carry.Phi_u

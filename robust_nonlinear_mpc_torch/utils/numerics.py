@@ -5,8 +5,9 @@ Every solver matmul runs at the tensor's full precision: float32 matmuls
 must not drop to TF32 on the GPU (`torch.backends.cuda.matmul.allow_tf32`
 stays False, which is PyTorch's default and is asserted by the bench). The
 JAX package's reduced-precision switches (`set_tube_precision("default")`,
-`set_qp_direction_precision("default")`) are not ported: the port always
-runs the "highest" mode.
+`set_qp_direction_precision("default")`) and its `spd_inverse` are not
+ported yet (ROADMAP.md Open items, queue 1 item 3): the port always runs
+the "highest" mode.
 """
 
 from __future__ import annotations

@@ -65,8 +65,8 @@ def _close(got, ref, atol, what):
 def test_plain_backward_K_matches_pallas(Bc, N, nx, nu, ni, ni_f):
     args = _problem(Bc, N, nx, nu, ni, ni_f)
     A, B, G, Gf, eta, eta_f, regs, _ = args
-    ref = _backward_K_batched(*map(jnp.asarray, (A, B, G, Gf, eta, eta_f)),
-                              js.SLSRegs(*map(jnp.asarray, regs)), b_tile=4, interpret=True)
+    ref = jax.jit(lambda *a: _backward_K_batched(*a, b_tile=4, interpret=True))(
+        *map(jnp.asarray, (A, B, G, Gf, eta, eta_f)), js.SLSRegs(*map(jnp.asarray, regs)))
     tA, tB, tG, tGf, teta, teta_f, tregs, _ = _torch(args)
     got = tb._plain_backward_K(tA, tB, tG, tGf, teta, teta_f, tregs)
     assert got.shape == (Bc, N, N + 1, nu, nx)

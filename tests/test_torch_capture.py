@@ -125,7 +125,7 @@ def rocket_qps(workloads):
     js = jq.QPStatics(**{k: jnp.asarray(v.numpy()) for k, v in stat._asdict().items()})
     jd = jq.QPData(**{k: jnp.asarray(v.numpy()) for k, v in data._asdict().items()})
     jopts = jq.IPMOptions(max_iter=15, tol=1e-9)
-    ref = jax.vmap(lambda d, c: jq.solve_qp(js, d, jopts, max_iter_dyn=c))(
+    ref = jax.jit(jax.vmap(lambda d, c: jq.solve_qp(js, d, jopts, max_iter_dyn=c)))(
         jd, jnp.asarray(CAP, jnp.int32))
     return stat, data, ref
 

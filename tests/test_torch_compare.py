@@ -30,13 +30,13 @@ def _one_thread():
 
 
 def test_compare_generate_matches_jax(tmp_path, monkeypatch):
-    """The comparison CLI's `generate` at N = 6, T = 3 (float64, CPU): the
+    """The comparison CLI's `generate` at N = 4, T = 3 (float64, CPU): the
     same npz keys, trajectories within 1e-6, closed-loop costs within 1e-6
     relative."""
     monkeypatch.setattr(cmp_j, "FOLDER", str(tmp_path / "jax"))
     monkeypatch.setattr(cmp_t, "FOLDER", str(tmp_path / "torch"))
-    ref = np.load(cmp_j.generate(6, 3))
-    got = np.load(cmp_t.generate(6, 3, device="cpu"))
+    ref = np.load(cmp_j.generate(4, 3))
+    got = np.load(cmp_t.generate(4, 3, device="cpu"))
     assert sorted(got.files) == sorted(ref.files)
     for k in ref.files:
         a, b = np.asarray(got[k]), np.asarray(ref[k])

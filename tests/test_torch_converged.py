@@ -169,7 +169,7 @@ def test_soft_fallback_reseeds_failed_lanes():
 
 def test_mesh_and_rti_are_refused():
     _, _, tsolver = _pendulum()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tcl.build_chunked_converged_loop(tsolver, 2, mesh=object())
     tsolver.opts = tsolver.opts._replace(rti=1)
     with pytest.raises(ValueError, match="until-convergence"):

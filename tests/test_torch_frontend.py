@@ -12,6 +12,7 @@ cost 1e-9 relative).
 
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,7 +194,7 @@ def test_frontend_updates_match_jax():
 def test_frontend_ltv_from_model_matches_jax():
     m_t, m_j = PendulumT(device="cpu"), Pendulum()
     ltv_t, ltv_j = LTVT(m_t, 5), LTV(m_j, 5)
-    A, B, c = m_j.linearize_traj(jnp.zeros((6, 4)), jnp.zeros((5, 1)))
+    A, B, c = jax.jit(m_j.linearize_traj)(jnp.zeros((6, 4)), jnp.zeros((5, 1)))
     At, Bt, ct = m_t.linearize_traj(torch.zeros((6, 4), dtype=torch.float64),
                                     torch.zeros((5, 1), dtype=torch.float64))
     np.testing.assert_allclose(At.numpy(), np.asarray(A), atol=1e-12)

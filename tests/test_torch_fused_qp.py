@@ -10,6 +10,7 @@ formulas in another summation order). A CPU call must not count as a
 kernel launch.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,15 +65,16 @@ def test_fused_newton_matches_pallas_interpret(Bsz, nu):
     J = lambda xs: [jnp.asarray(x) for x in xs]
     fused_qp.reset_launch_counts()
 
-    jdX, jdU, jdnu, jfact = _factor_predictor_batched(*J(mats), *J(rhs), interpret=True)
+    jdX, jdU, jdnu, jfact = jax.jit(lambda *a: _factor_predictor_batched(*a, interpret=True))(
+        *J(mats), *J(rhs))
     tdX, tdU, tdnu, tfact = fused_qp.factor_predictor(*T(mats), *T(rhs))
     names = ["K", "FxuT", "Fuu_tri", "Fiv_tri", "Pseq"]
     for name, g, r in zip(["dX", "dU", "dnu"] + names,
                           [tdX, tdU, tdnu, *tfact], [jdX, jdU, jdnu, *jfact]):
         _close(g, r, f"factor_predictor {name}")
 
-    rs_j = _resolve_batched(jnp.asarray(mats[0]), jnp.asarray(mats[1]), jfact,
-                            *J(rhs2), interpret=True)
+    rs_j = jax.jit(lambda *a: _resolve_batched(*a, interpret=True))(
+        jnp.asarray(mats[0]), jnp.asarray(mats[1]), jfact, *J(rhs2))
     rs_t = fused_qp.resolve(torch.as_tensor(mats[0]), torch.as_tensor(mats[1]), tfact,
                             *T(rhs2))
     for name, g, r in zip(["dX", "dU", "dnu"], rs_t, rs_j):

@@ -84,8 +84,8 @@ def _iteration_inputs(nu, seed):
 @pytest.mark.parametrize("nu", [1, 2, 4])
 def test_plain_ipm_iteration_matches_pallas_interpret(nu):
     args, n_comp = _iteration_inputs(nu, seed=50 + nu)
-    ref = _ipm_iter_batched(*[jnp.asarray(a) for a in args], tau=0.995, n_comp=n_comp,
-                            interpret=True)
+    ref = jax.jit(lambda *a: _ipm_iter_batched(*a, tau=0.995, n_comp=n_comp, interpret=True))(
+        *[jnp.asarray(a) for a in args])
     fused_qp.reset_launch_counts()
     got = fused_qp.ipm_iteration(*[torch.as_tensor(a) for a in args], tau=0.995,
                                  n_comp=n_comp)
@@ -123,7 +123,7 @@ def test_solve_qp_fused_iter_matches_pallas_iter():
     stat = _mk(nu, 300)[0]
     datab = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jdatas)
     o_i = jq.IPMOptions(max_iter=40, tol=1e-10, kkt="pallas_iter")
-    ref = jax.vmap(lambda d: jq.solve_qp(stat, d, o_i))(datab)
+    ref = jax.jit(jax.vmap(lambda d: jq.solve_qp(stat, d, o_i)))(datab)
 
     T = lambda a: torch.as_tensor(np.array(a))
     got = tq.solve_qp(tq.QPStatics(*(T(a) for a in stat)), tq.QPData(*(T(a) for a in datab)),

@@ -17,6 +17,7 @@ output's largest entry. The whole-iteration inputs must freeze lane 1 and
 revert exactly lane 2, which the card's comparison relies on.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,12 +44,13 @@ def _close(got, ref, what):
 def test_newton_inputs_match_pallas_interpret_at_other_widths(nx, nu):
     mats, rhs, rhs2 = kernel_times.newton_inputs(3, 6, nx, nu, torch.float64, "cpu", seed=nx)
     J = lambda xs: [jnp.asarray(x.numpy()) for x in xs]
-    jdX, jdU, jdnu, jfact = _factor_predictor_batched(*J(mats), *J(rhs), interpret=True)
+    jdX, jdU, jdnu, jfact = jax.jit(lambda *a: _factor_predictor_batched(*a, interpret=True))(
+        *J(mats), *J(rhs))
     tdX, tdU, tdnu, tfact = fused_qp.factor_predictor(*mats, *rhs)
     names = ["dX", "dU", "dnu", "K", "FxuT", "Fuu_tri", "Fiv_tri", "Pseq"]
     for name, g, r in zip(names, [tdX, tdU, tdnu, *tfact], [jdX, jdU, jdnu, *jfact]):
         _close(g, r, f"factor_predictor {name}")
-    rs_j = _resolve_batched(*J(mats[:2]), jfact, *J(rhs2), interpret=True)
+    rs_j = jax.jit(lambda *a: _resolve_batched(*a, interpret=True))(*J(mats[:2]), jfact, *J(rhs2))
     rs_t = fused_qp.resolve(mats[0], mats[1], tfact, *rhs2)
     for name, g, r in zip(names[:3], rs_t, rs_j):
         _close(g, r, f"resolve {name}")
@@ -81,8 +83,8 @@ def test_backward_and_response_inputs_take_the_pallas_contract():
     A, B, G, Gf, eta, eta_f, regs = bargs
     assert G.shape == (14, 7) and Gf.shape == (10, 5) and eta.shape == (3, 4, 4, 14)
     J = lambda xs: [jnp.asarray(x.numpy()) for x in xs]
-    ref = _backward_K_batched(*J((A, B, G, Gf, eta, eta_f)), js.SLSRegs(*J(regs)), b_tile=4,
-                              interpret=True)
+    ref = jax.jit(lambda *a: _backward_K_batched(*a, b_tile=4, interpret=True))(
+        *J((A, B, G, Gf, eta, eta_f)), js.SLSRegs(*J(regs)))
     got = fused_backward.backward_K(*bargs)
     assert got.shape == (3, 4, 5, 2, 5)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-10)
@@ -91,8 +93,9 @@ def test_backward_and_response_inputs_take_the_pallas_contract():
     assert all(a.dtype == torch.float32 for a in rargs)
     got = fused_response.fused_response(*rargs)
     A, B, E, K, *rest = (a.numpy() for a in rargs)
+    j_response = jax.jit(lambda *a: j_fused_response(*a, interpret=True))
     for b in range(2):
-        ref = j_fused_response(A[b], B[b], E, K[b], *rest, interpret=True)
+        ref = j_response(A[b], B[b], E, K[b], *rest)
         for g, r in zip(got, ref):
             r = np.asarray(r).reshape(g[b].shape)
             assert np.abs(g[b].numpy() - r).max() <= 1e-5 * np.abs(r).max()

@@ -10,6 +10,7 @@ chain to the JAX windowed path. float64, 1e-10 relative to each output's
 largest entry; every output, the cached factors included.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,14 +64,15 @@ def test_plain_twins_match_windowed_pallas_at_n60(nu):
     J = lambda xs: [jnp.asarray(x) for x in xs]
     T = lambda xs: [torch.as_tensor(x) for x in xs]
 
-    jout = _factor_predictor_batched_win(*J(mats), *J(rhs), window, interpret=True)
+    jout = jax.jit(lambda *a: _factor_predictor_batched_win(*a, window, interpret=True))(
+        *J(mats), *J(rhs))
     tout = fused_qp._plain_factor_predictor(*T(mats), *T(rhs))
     names = ["dX", "dU", "dnu", "K", "FxuT", "Fuu_tri", "Fiv_tri", "Pseq"]
     for name, g, r in zip(names, list(tout[:3]) + list(tout[3]), list(jout[:3]) + list(jout[3])):
         _close(g, r, f"factor_predictor {name}")
 
-    jrs = _resolve_batched_win(jnp.asarray(mats[0]), jnp.asarray(mats[1]), jout[3], *J(rhs2),
-                               window, interpret=True)
+    jrs = jax.jit(lambda *a: _resolve_batched_win(*a, window, interpret=True))(
+        jnp.asarray(mats[0]), jnp.asarray(mats[1]), jout[3], *J(rhs2))
     trs = fused_qp._plain_resolve(torch.as_tensor(mats[0]), torch.as_tensor(mats[1]), tout[3],
                                   *T(rhs2))
     for name, g, r in zip(names[:3], trs, jrs):

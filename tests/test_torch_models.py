@@ -50,7 +50,7 @@ def test_buffers_follow_to():
 def test_ode_matches_jax():
     X, U = _states(16, 1)
     jr, tr = JRocket(), TRocket(device="cpu")
-    ref = np.asarray(jax.vmap(jr.ode)(jnp.asarray(X), jnp.asarray(U)))
+    ref = np.asarray(jax.jit(jax.vmap(jr.ode))(jnp.asarray(X), jnp.asarray(U)))
     got = tr.ode(torch.as_tensor(X), torch.as_tensor(U)).numpy()
     assert np.abs(got - ref).max() <= TOL
 
@@ -60,7 +60,7 @@ def test_ddyn_matches_jax(method):
     X, U = _states(16, 2)
     jr, tr = JRocket(), TRocket(device="cpu")
     jr.discretization_method = tr.discretization_method = method
-    ref = np.asarray(jax.vmap(jr.ddyn)(jnp.asarray(X), jnp.asarray(U)))
+    ref = np.asarray(jax.jit(jax.vmap(jr.ddyn))(jnp.asarray(X), jnp.asarray(U)))
     got = tr.ddyn(torch.as_tensor(X), torch.as_tensor(U)).numpy()
     assert np.abs(got - ref).max() <= TOL
 
@@ -75,8 +75,11 @@ def test_linearize_traj_matches_jax():
         Us.append(U[:N])
     Xs, Us = np.stack(Xs), np.stack(Us)
     A, B, c = tr.linearize_traj(torch.as_tensor(Xs), torch.as_tensor(Us))
+    # one compiled JAX reference for every lane (the eager one dispatches
+    # its thousands of ops one by one)
+    j_linearize = jax.jit(jr.linearize_traj)
     for b in range(Bsz):
-        Aj, Bj, cj = jr.linearize_traj(jnp.asarray(Xs[b]), jnp.asarray(Us[b]))
+        Aj, Bj, cj = j_linearize(jnp.asarray(Xs[b]), jnp.asarray(Us[b]))
         assert np.abs(A[b].numpy() - np.asarray(Aj)).max() <= TOL
         assert np.abs(B[b].numpy() - np.asarray(Bj)).max() <= TOL
         assert np.abs(c[b].numpy() - np.asarray(cj)).max() <= TOL

@@ -33,7 +33,9 @@ def test_port_has_sources():
                 "expe/main_quadrotor_robust_closed_loop.py",
                 "expe/main_rocket_compare_closed_loop.py", "utils/plotting.py", "utils/timing.py",
                 "models/linear.py", "models/integrator.py", "solvers/ocp.py",
-                "solvers/qp_frontend.py", "ops/qp_export.py", "native/__init__.py"):
+                "solvers/qp_frontend.py", "ops/qp_export.py", "native/__init__.py",
+                "parallel/mesh.py", "parallel/distributed.py", "parallel/columns.py",
+                "entry.py", "tools/column_scaling.py"):
         assert PORT / rel in SOURCES, rel
     assert (PORT / "native" / "rnm_qp.cpp").is_file()
 

@@ -1,7 +1,7 @@
 """The port against the NumPy oracle of the reference pipeline
 (`tests/reference_port/`), with the settings of tests/test_reference_parity.py
 at short horizons, float64 on the CPU: the pendulum's applied inputs over 10
-steps within 1e-8 and the quadrotor's over 3 steps within 1e-4 (the rocket
+steps within 1e-8 and the quadrotor's over 2 steps within 1e-4 (the rocket
 is in test_torch_oracle_rocket.py)."""
 
 import numpy as np
@@ -47,7 +47,7 @@ def test_pendulum_u_sequence_matches_oracle():
 
 
 def test_quadrotor_u_sequence_matches_oracle():
-    steps = 3
+    steps = 2
     _, Uo = run_quadrotor(steps=steps, x0=QUAD_X0.copy())
     m, solver = make_quadrotor_problem(15, device="cpu", verbose=False)
     Uf = run_closed_loop(m, solver, QUAD_X0.copy(), steps, noise="none")["input_trajectory"]

@@ -150,7 +150,7 @@ def _closed_loop_npz(nx, nu, N=5, T=7, seed=1):
 
 
 def test_rocket_closed_loop_figure_matches_jax(tmp_path, monkeypatch):
-    res = _closed_loop_npz(17, 4)
+    res = _closed_loop_npz(17, 4, T=4)
     res["g"] = np.asarray(RocketJ().g)
     folder = str(tmp_path / "rocket_run")
     common_t.save_results(folder, "rockETH_robust_closed_loop", res)

@@ -53,8 +53,9 @@ def _jax_solve(stat, data, opts, init=None, cap=None):
     js = jq.QPStatics(**{k: jnp.asarray(v) for k, v in stat.items()})
     jd = jq.QPData(**{k: jnp.asarray(v) for k, v in data.items()})
     if init is None and cap is None:
-        return jax.vmap(lambda d: jq.solve_qp(js, d, opts))(jd)
-    return jax.vmap(lambda d, i, c: jq.solve_qp(js, d, opts, init=i, max_iter_dyn=c))(jd, init, cap)
+        return jax.jit(jax.vmap(lambda d: jq.solve_qp(js, d, opts)))(jd)
+    return jax.jit(jax.vmap(lambda d, i, c: jq.solve_qp(js, d, opts, init=i, max_iter_dyn=c)))(
+        jd, init, cap)
 
 
 def _assert_same(got, ref):
@@ -64,10 +65,16 @@ def _assert_same(got, ref):
         assert np.abs(getattr(got, f).numpy() - np.asarray(getattr(ref, f))).max() <= TOL, f
 
 
-@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
-def test_solve_qp_matches_jax(kkt):
+@pytest.fixture(scope="module")
+def cold_ref():
+    """The JAX reference of the cold solves, once for every kkt case."""
     stat, data = _problem(0)
-    ref = _jax_solve(stat, data, jq.IPMOptions())
+    return stat, data, _jax_solve(stat, data, jq.IPMOptions())
+
+
+@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
+def test_solve_qp_matches_jax(kkt, cold_ref):
+    stat, data, ref = cold_ref
     got = tq.solve_qp(*_torch(stat, data), tq.IPMOptions(kkt=kkt))
     _assert_same(got, ref)
     assert got.success.all()
@@ -87,10 +94,10 @@ def test_batched_equals_per_lane():
         assert torch.allclose(one.lam[0], full.lam[b], rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
-def test_warm_start_and_lane_caps_match_jax(kkt):
-    """Warm-start initial point (with the Mehrotra shift) and a per-lane
-    iteration cap, on a perturbed copy of a solved problem."""
+@pytest.fixture(scope="module")
+def warm_ref():
+    """A solved problem, a perturbed copy of it, per-lane caps and the JAX
+    reference of the warm-started, capped solve: once for every kkt case."""
     stat, data = _problem(2)
     opts = jq.IPMOptions(tol=1e-9)
     cold = _jax_solve(stat, data, opts)
@@ -100,7 +107,14 @@ def test_warm_start_and_lane_caps_match_jax(kkt):
     data2["xinit"] = data["xinit"] + 0.01 * rng.standard_normal(data["xinit"].shape)
     cap = np.array([2, 30, 4, 30], dtype=np.int32)
     ref = _jax_solve(stat, data2, opts, init=cold, cap=jnp.asarray(cap))
+    return stat, data2, cold, cap, ref
 
+
+@pytest.mark.parametrize("kkt", ["riccati", "fused", "fused_iter"])
+def test_warm_start_and_lane_caps_match_jax(kkt, warm_ref):
+    """Warm-start initial point (with the Mehrotra shift) and a per-lane
+    iteration cap, on a perturbed copy of a solved problem."""
+    stat, data2, cold, cap, ref = warm_ref
     tstat, tdata2 = _torch(stat, data2)
     T = lambda a: torch.as_tensor(np.array(a))
     init = tq.QPSolution(

@@ -13,6 +13,7 @@ ni = 42, ni_f = 34), N = 4, the cases of tests/test_restoration.py:
   rejected lanes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,8 +43,8 @@ def _torch(stat, data):
 
 
 def _both(stat, data, h):
-    ref = restoration_solve(stat, data.A, data.B, data.c, data.qx, data.qu, h, data.hf,
-                            data.xinit, rho=1e6, ipm=IPM)
+    ref = jax.jit(lambda *a: restoration_solve(stat, *a, rho=1e6, ipm=IPM))(
+        data.A, data.B, data.c, data.qx, data.qu, h, data.hf, data.xinit)
     tstat, tdata = _torch(stat, data)
     got = t_restore(tstat, tdata.A, tdata.B, tdata.c, tdata.qx, tdata.qu,
                     torch.as_tensor(np.asarray(h))[None], tdata.hf, tdata.xinit,
@@ -73,7 +74,7 @@ def test_restoration_matches_jax_when_feasible(seed, xtol):
 
 def test_restoration_matches_jax_when_infeasible():
     stat, data = random_qp(seed=1, **WIDTHS)
-    hard0 = solve_qp(stat, data, IPM)
+    hard0 = jax.jit(lambda d: solve_qp(stat, d, IPM))(data)
     assert bool(hard0.success)
     margin = np.asarray(data.h - (hard0.X[:-1] @ stat.Gx.T + hard0.U @ stat.Gu.T))
     h_bad = jnp.asarray(np.asarray(data.h) - (margin + 1.0))

@@ -11,7 +11,7 @@ over through `robust_nonlinear_mpc_torch.interop`.
   search ends up comparing merit values that differ in their last digits,
   so the iteration count depends on rounding order (measured: the same
   solution to 5e-9, counts [42, 50, 36] in JAX against [60, 47, 53] here).
-* Soft-slack fallback solve (N = 4, B = 2): iteration counts, success and
+* Soft-slack fallback solve (N = 2, B = 2): iteration counts, success and
   X/U within 1e-7.
 * 3 closed-loop MPC steps from the same seed: per step and lane, success
   and QP iterations identical, u0, X, U and the backoffs within 1e-7.
@@ -81,7 +81,7 @@ def test_sqp_seed_matches_jax(slice_setup):
 
 
 def test_soft_fallback_matches_jax():
-    N2, B2 = 4, 2
+    N2, B2 = 2, 2
     m, solver, tsolver = _problem(N2)
     rng = np.random.default_rng(5)
     x0s = np.array(X0)[None] + 0.02 * rng.standard_normal((B2, m.nx))
@@ -131,12 +131,22 @@ def test_closed_loop_steps_match_jax(slice_setup):
     assert np.array_equal(got["persist"]["qp_warm"]["valid"], ref["persist"]["qp_warm"]["valid"])
 
 
-def test_bench_workload_builds_and_steps_on_cpu():
-    """The bench twin's workload at a tiny size on the CPU (plain Newton
-    solves): seeds every lane, and one step keeps the state finite."""
+TINY = dict(device="cpu", dtype=torch.float64, B=2, N=4, n_warm=1, n_rep=1)
+
+
+@pytest.fixture(scope="module")
+def tiny_workload():
+    """The bench twin's default workload at a tiny size on the CPU, seeded
+    once for the tests that step it or seed other configurations from it."""
     from robust_nonlinear_mpc_torch import bench
 
-    wl = bench.build_workload(device="cpu", dtype=torch.float64, B=2, N=4, n_warm=1, n_rep=1)
+    return bench.build_workload(**TINY)
+
+
+def test_bench_workload_builds_and_steps_on_cpu(tiny_workload):
+    """The bench twin's workload at a tiny size on the CPU (plain Newton
+    solves): seeds every lane, and one step keeps the state finite."""
+    wl = tiny_workload
     assert wl.solver.opts.ipm.kkt == "fused" and wl.budget_mode == "adaptive(6,15)"
     assert wl.sls_block == wl.solver._fast_sls_opts().sls_block == 0
     assert wl.w_seq.shape == (2, 2, wl.m.nw)
@@ -170,15 +180,14 @@ def test_make_rocket_problem_matches_jax():
     assert np.array_equal(ts.E.numpy(), np.asarray(solver.prob.E))
 
 
-def test_bench_fused_kernel_configuration_on_cpu():
+def test_bench_fused_kernel_configuration_on_cpu(tiny_workload):
     """The fused-kernel configuration of the bench twin (whole-iteration
     kernel, fused response) at a tiny size on the CPU (plain twins), seeded
     from the default configuration's workload: the same lanes, real Phi
     buffers carried, and one step keeps the state finite."""
     from robust_nonlinear_mpc_torch import bench
 
-    size = dict(device="cpu", dtype=torch.float64, B=2, N=4, n_warm=1, n_rep=1)
-    base = bench.build_workload(**size)
+    size, base = TINY, tiny_workload
     wl = bench.build_workload(**size, kkt="fused_iter", response="fused", seed_from=base)
     assert all(torch.equal(a, b) for a, b in zip(wl.carry[:2], base.carry[:2]))
     assert torch.equal(wl.w_seq, base.w_seq)

@@ -84,13 +84,23 @@ def test_soft_solver_rocket_matches_jax():
     _same(got, want)
 
 
-def test_soft_solver_escalates_past_rung_zero():
+def test_soft_solver_escalates_past_rung_zero(monkeypatch):
     """With the SQP cut to 4 iterations the undamped rung 0 ends short of
     the success test (step 0.13 > 0.1 on the rocket at N = 6) and the
     proximally damped rung 1 (prox = 1) succeeds: on both sides."""
+    import robust_nonlinear_mpc_torch.solvers.soft_nlp as soft_mod
+
     crippled_t = SOFT_OPTS_T._replace(max_iter=4)
     crippled_j = SOFT_OPTS_J._replace(max_iter=4)
     port, ref = _rocket_pair(opts_t=crippled_t, opts_j=crippled_j)
+    # the port's rungs, as its solve runs them
+    rungs = {}
+
+    def recording(*a, prox, **k):
+        rungs[prox] = out = soft_t(*a, prox=prox, **k)
+        return out
+
+    monkeypatch.setattr(soft_mod, "soft_nlp_solve", recording)
     x0 = np.array(X0)
     got, want = port.solve(x0), ref.solve(x0)
     assert want["success"]
@@ -98,12 +108,8 @@ def test_soft_solver_escalates_past_rung_zero():
     # rung 0 fails on both sides (the JAX rung from its compiled function)
     r0_j = ref._fns[0](np.asarray(x0), ref._zeroX, ref._zeroU)
     assert not bool(r0_j.success)
-    x0_t = torch.as_tensor(x0[None])
-    r0_t = soft_t(port.m, port.N, port.Q, port.R, port.Qf, x0_t, rho_soft=1e6,
-                  rho_soft_l1=1e6, opts=crippled_t, prox=0.0)
-    assert not bool(r0_t.success[0])
+    assert sorted(rungs) == [0.0, 1.0]
+    assert not bool(rungs[0.0].success[0])
     # and the result is rung 1's
-    r1_t = soft_t(port.m, port.N, port.Q, port.R, port.Qf, x0_t, rho_soft=1e6,
-                  rho_soft_l1=1e6, opts=crippled_t, prox=1.0)
-    assert bool(r1_t.success[0])
-    np.testing.assert_array_equal(got["primal_x"], r1_t.X[0].numpy().T)
+    assert bool(rungs[1.0].success[0])
+    np.testing.assert_array_equal(got["primal_x"], rungs[1.0].X[0].numpy().T)
