@@ -120,13 +120,27 @@ before the result lines):
      (`tools/column_scaling.py`); (d) `entry.entry()` on the card against
      the CPU within 1e-9 (float64) and `entry.dryrun_multichip(1)`, in a
      worker of their own (`--entry-worker`, started with the gloo ranks).
+ 13. the condensed IPM and the tube precision switch (timed, after phases
+     6-8, alone on the card; about a minute): (a) kkt="condensed" (torch
+     ops, no kernel of its own) against kkt="riccati" in float64 on
+     well-conditioned random QPs at the rocket's widths, B = 512, N = 15:
+     on every lane that riccati solves the same iteration count, success,
+     X/U within 1e-9 (the others are printed); then condensed,
+     riccati and fused on phase 4's rocket QPs in float32 with the bench's
+     IPM options, the median ms of 3 solves (CUDA events), success and mean
+     iterations; (b) the bench step (the default configuration, captured)
+     with the tube at "default" (TF32 tube GEMMs) against "highest", from
+     the bench seed after 10 replays: the largest backoff deviation of one
+     step and solves/s of 10 replays in alternating pairs; TF32 must be on
+     inside the switch's context and off after it. Record in
+     `chiprun_out/chip_smoke_13.json`.
 Every launch counter is zeroed just before each bench run and before phase
 9b (in its own process), and read just after. A wrapper counts a launch
 recorded into a CUDA graph once, at capture; a replay launches without it,
 so the bench record counts one replay's launches times the replays, and
 the kernels record's `launches` are the first run of each path's timed
 window, counted so. The last lines are the kernels record, the nvidia-smi
-line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`)
+line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`, `13`)
 runs a subset (phases 1 and 2 always run) and then prints neither result
 line; so does `--guarantee-alone`.
 """
@@ -193,7 +207,7 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the B = 1 latency loop of each bench run here (the bench twin alone runs
 # the reference's 200 steps): cut to keep the script inside its time limit
 LATENCY_STEPS = 50
-ALL_PHASES = range(3, 13)
+ALL_PHASES = range(3, 14)
 
 
 _START = time.perf_counter()
@@ -824,6 +838,156 @@ def bench_phases(wls):
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_profile.json").write_text(json.dumps(profile, indent=1))
     return launches
+
+
+def random_qps(Bsz, N, nx, nu, dtype, device, seed):
+    """Well-conditioned random QPs at the given widths (ni = 2 (nx + nu),
+    ni_f = 2 nx), made with numpy: stable dynamics, interior-feasible
+    bounds."""
+    from robust_nonlinear_mpc_torch.ops.qp_ipm import QPStatics
+
+    rng = np.random.default_rng(seed)
+    ni, ni_f = 2 * (nx + nu), 2 * nx
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    stat = QPStatics(Hx=t(2 * np.eye(nx)), Hu=t(2 * np.eye(nu)), HxN=t(10 * np.eye(nx)),
+                     Gx=t(rng.standard_normal((ni, nx))), Gu=t(rng.standard_normal((ni, nu))),
+                     Gf=t(rng.standard_normal((ni_f, nx))))
+    data = QPData(
+        A=t(0.9 * np.eye(nx) + 0.1 * rng.standard_normal((Bsz, N, nx, nx)) / np.sqrt(nx)),
+        B=t(0.3 * rng.standard_normal((Bsz, N, nx, nu))),
+        c=t(0.05 * rng.standard_normal((Bsz, N, nx))),
+        qx=t(0.3 * rng.standard_normal((Bsz, N + 1, nx))),
+        qu=t(0.3 * rng.standard_normal((Bsz, N, nu))),
+        h=t(3.0 + np.abs(rng.standard_normal((Bsz, N, ni)))),
+        hf=t(3.0 + np.abs(rng.standard_normal((Bsz, ni_f)))),
+        xinit=t(0.2 * rng.standard_normal((Bsz, nx))))
+    return stat, data
+
+
+def median_call_ms(fn, n=3):
+    """Median over n calls of one call's time (ms) between CUDA events, after
+    one call to warm up."""
+    fn()
+    samples = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    return float(np.median(samples))
+
+
+def check_condensed(Bsz=512, N=15, device="cuda"):
+    """Phase 13a: kkt="condensed" (torch ops, no kernel of its own) on the
+    card. Float64 on well-conditioned random QPs at the rocket's widths:
+    on every lane that kkt="riccati" solves, the same iteration count,
+    success and X/U within 1e-9. Then float32 on the bench's rocket QPs (phase 4's, the bench's
+    IPM options): condensed, riccati and fused, median ms a solve of 3
+    calls, success and mean iterations."""
+    stat, data = random_qps(Bsz, N, NX, NU, torch.float64, device, seed=4)
+    opts = IPMOptions(max_iter=30, tol=1e-9)
+    ric = solve_qp(stat, data, opts._replace(kkt="riccati"))
+    con = solve_qp(stat, data, opts._replace(kkt="condensed"))
+    # held on the lanes the reference path solves: riccati stops short on a
+    # few lanes, where condensed may go on to converge
+    ok = ric.success
+    same = int((ric.iters == con.iters)[ok].sum())
+    ex, _ = rel_err(con.X[ok], ric.X[ok])
+    eu, _ = rel_err(con.U[ok], ric.U[ok])
+    say(f"[13a] condensed vs riccati, random QPs B={Bsz} N={N} nx={NX} nu={NU} float64: on the "
+        f"{int(ok.sum())} lanes riccati solves, iters equal on {same} (mean "
+        f"{ric.iters[ok].float().mean():.2f}), condensed success {int(con.success[ok].sum())}, "
+        f"X rel err {ex:.2e}, U rel err {eu:.2e}; the other lanes: riccati iters "
+        f"{ric.iters[~ok].tolist()} KKT {ric.kkt_res[~ok].tolist()}, condensed iters "
+        f"{con.iters[~ok].tolist()} KKT {con.kkt_res[~ok].tolist()}")
+    if same != int(ok.sum()) or not bool(con.success[ok].all()):
+        fail("[13a] kkt='condensed' and kkt='riccati' differ in iterations or success")
+    if not (ex <= 1e-9 and eu <= 1e-9):
+        fail("[13a] condensed and riccati solutions differ by more than 1e-9")
+    stat, data = rocket_qps(Bsz, N, torch.float32, device, seed=3)
+    opts = IPMOptions(max_iter=bench.COLD_CAP, tol=3e-5)
+    out = {}
+    for kkt in ("condensed", "riccati", "fused"):
+        o = opts._replace(kkt=kkt)
+        sol = solve_qp(stat, data, o)
+        ms = median_call_ms(lambda: solve_qp(stat, data, o))
+        out[kkt] = {"ms": ms, "success": float(sol.success.float().mean()),
+                    "mean_iters": float(sol.iters.float().mean()),
+                    "finite_lanes": int(torch.isfinite(sol.X).flatten(1).all(1).sum())}
+    say(f"[13a] rocket QPs B={Bsz} N={N} float32 (max_iter {bench.COLD_CAP}, tol 3e-5), ms a "
+        f"solve (median of 3, CUDA events): {json.dumps(out)}")
+    return out
+
+
+def tube_precision_pairs(wl, n_warm=10, n_rep=10, pairs=2):
+    """Phase 13b: the bench step with the tube at "default" (TF32 tube GEMMs)
+    against "highest", from the bench seed after n_warm replays: the largest
+    backoff deviation of one step from the same state, then solves/s of
+    n_rep replays in alternating pairs (highest, default, default, highest,
+    ...). The switch must set TF32 inside its context only."""
+    from robust_nonlinear_mpc_torch.utils.numerics import (
+        set_tube_precision,
+        tf32_enabled,
+        tube_precision,
+    )
+
+    step_h = capture_mpc_step(wl.solver, wl.carry)
+    carry = wl.carry
+    for i in range(n_warm):
+        carry, _ = step_h(carry, wl.w_seq[i])
+    carry = tree_map(torch.clone, carry)
+    set_tube_precision("default")
+    try:
+        with tube_precision():
+            inside = tf32_enabled()
+        step_d = capture_mpc_step(wl.solver, carry)
+    finally:
+        set_tube_precision("highest")
+    if not inside or tf32_enabled():
+        fail(f"[13b] the tube switch: TF32 inside its context {inside}, after it {tf32_enabled()}")
+    w = wl.w_seq[n_warm]
+    out_h = tree_map(torch.clone, step_h(carry, w)[1])
+    out_d = tree_map(torch.clone, step_d(carry, w)[1])
+    dev = {}
+    for name, i in (("backoff_x", 4), ("backoff_u", 5)):
+        h, d = out_h[i], out_d[i]
+        ok = torch.isfinite(h) & torch.isfinite(d)
+        diff = float((h - d).abs()[ok].max()) if bool(ok.any()) else float("nan")
+        dev[name] = {"max_abs": diff, "rel": diff / max(float(h[ok].abs().max()), 1e-30)}
+    steps = {"highest": step_h, "default": step_d}
+    rates = {"highest": [], "default": []}
+    for mode in ("highest", "default", "default", "highest") * (pairs // 2):
+        c = carry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_rep):
+            c, out = steps[mode](c, wl.w_seq[n_warm + i])
+        torch.cuda.synchronize()
+        rates[mode].append(wl.B * n_rep / (time.perf_counter() - t0))
+        if not bool(torch.isfinite(c[0]).all()):
+            fail(f"[13b] the tube at {mode!r} gave a non-finite plan")
+    record = {"backoff_deviation": dev, "solves_per_s": rates,
+              "success_highest": float(out_h[6].float().mean()),
+              "success_default": float(out_d[6].float().mean()),
+              "qp_iters_equal_lanes": int((out_h[7] == out_d[7]).sum())}
+    say(f"[13b] tube 'default' (TF32) vs 'highest', bench step B={wl.B} float32: "
+        f"{json.dumps(record)}")
+    return record
+
+
+def precision_phase(wl):
+    """Phase 13: the condensed IPM and the tube precision switch, alone on
+    the card; its record goes to chiprun_out/chip_smoke_13.json."""
+    t0 = time.perf_counter()
+    record = {"condensed": check_condensed(), "tube": tube_precision_pairs(wl)}
+    record["phase_s"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_13.json").write_text(json.dumps(record, indent=1))
+    say(f"[13] phase 13 took {record['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def converged_options(opts):
@@ -1479,7 +1643,7 @@ def join_worker(proc, log, label, timeout=900):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     ap.add_argument("--phases", default="all",
-                    help="comma-separated subset of 3-12 to run after phases 1-2 (default: all)")
+                    help="comma-separated subset of 3-13 to run after phases 1-2 (default: all)")
     ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
                     help="run only phase 9b, alone on the card after the build, with the "
                          "seed and the steps timed or every stage timed; no result lines")
@@ -1545,7 +1709,7 @@ def main(argv=None):
         if 4 in run:
             check_solve_qp()
             check_fused_iter()
-        if run & {5, 6, 7, 8, 10, 11}:
+        if run & {5, 6, 7, 8, 10, 11, 13}:
             wls = bench_workloads()
         if 5 in run:
             check_closed_loop(wls["6"])
@@ -1576,6 +1740,8 @@ def main(argv=None):
             times = time_kernels()
         if run & {6, 7, 8}:
             launches = bench_phases(wls)
+        if 13 in run:
+            precision_phase(wls["6"])
     finally:
         for proc, _ in workers.values():
             if proc.poll() is None:

@@ -11,8 +11,11 @@ fused CUDA Newton kernels, warm-started from the previous step, adaptive
 w ~ U[-1, 1]^nw, warm shift. Same configuration as `bench.py` on its
 float32 path: B = 512, 10 timed reps after 30 warm-in steps, seeds 0 and 7,
 QP tolerance 3e-5, every lane seeded by the SQP with the chunked soft-slack
-fallback. The tube synthesis runs at full float32 ("highest"): the JAX
-package's reduced-precision tube mode is not ported, and TF32 stays off.
+fallback. The tube synthesis runs at full float32 ("highest",
+`utils.numerics.set_tube_precision`), and TF32 stays off: the JAX bench sets
+its tube to "default", whose H100 counterpart (TF32 tube GEMMs) stays off
+here until a benchmark measures it (`chip_smoke.py` phase 13 prints its
+backoff deviation and solves/s).
 
 `build_workload(kkt=..., response=..., sls_block=...)` picks the IPM's
 Newton path ("fused", the default, or "fused_iter": the whole iteration as
@@ -93,7 +96,9 @@ def cuda_ms(fn, n):
 def require_cuda():
     if not torch.cuda.is_available():
         raise RuntimeError("this benchmark measures the GPU: no CUDA device is available")
-    if torch.backends.cuda.matmul.allow_tf32:
+    from robust_nonlinear_mpc_torch.utils.numerics import tf32_enabled
+
+    if tf32_enabled():
         raise RuntimeError("TF32 matmuls must stay off on the solver path")
 
 
@@ -310,6 +315,7 @@ def make_record(wl, *, solves_per_s, ok, qp_iters, finite, lats, launches, gpu,
     one replay's, `eager_check` the eager step against the last timed
     replay."""
     from robust_nonlinear_mpc_torch.utils.hardware import PEAK_BYTES, PEAK_FLOPS
+    from robust_nonlinear_mpc_torch.utils.numerics import tube_prec
 
     device, name, limit_w = gpu
     m = wl.m
@@ -376,7 +382,7 @@ def make_record(wl, *, solves_per_s, ok, qp_iters, finite, lats, launches, gpu,
         ),
         "gpu_name": name,
         "power_limit_w": limit_w,
-        "tube_precision": "highest",
+        "tube_precision": tube_prec(),
         "kkt": wl.solver.opts.ipm.kkt,
         "response": wl.response,
         "sls_block": wl.sls_block,

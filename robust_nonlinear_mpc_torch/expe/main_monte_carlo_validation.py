@@ -344,9 +344,11 @@ def main(argv=None):
                    help="steady-state-aware IPM budget (qp_iters steady / 15 cold)")
     p.add_argument("--converged", action="store_true",
                    help="until-convergence SCP/SLS (the reference default) instead of RTI(1/1)")
-    p.add_argument("--kkt", default="riccati", choices=["riccati", "fused", "fused_iter"],
+    p.add_argument("--kkt", default="riccati",
+                   choices=["riccati", "fused", "fused_iter", "condensed"],
                    help="the IPM's Newton solves: the torch Riccati loops, the fused "
-                        "CUDA kernels, or the whole iteration as one kernel")
+                        "CUDA kernels, the whole iteration as one kernel, or the "
+                        "condensed KKT (a research option)")
     p.add_argument("--chunks", type=int, default=1,
                    help="split the batch into this many equal runs and aggregate")
     p.add_argument("--scp-per-dispatch", type=int, default=2, dest="scp_per_dispatch",

@@ -89,6 +89,8 @@ class Rocket(Model):
         self.nw = 17
         self.dt = 0.05
 
+        self.neutral_state = np.concatenate([np.zeros(6), np.array([1.0, 0, 0, 0]), np.zeros(7)])
+
         x_ub = np.array(
             [10.0, 10.0, 10.0,
              1.0, 1.0, 1.0,
@@ -104,6 +106,20 @@ class Rocket(Model):
         self.ni = 2 * (self.nx + self.nu)
         self.ni_f = 2 * self.nx
 
+        names = list(self.state_names) + list(self.control_names)
+        self.constraint_names = [f"{n}_ub" for n in names] + [f"{n}_lb" for n in names]
+        self.constraint_names_f = [f"{n}_ub" for n in self.state_names] + [
+            f"{n}_lb" for n in self.state_names
+        ]
+
+        # coarse uncertainty scaling (read by no solver; kept as in the JAX model)
+        self.E_crs = np.diag(
+            [4.2, 3.5, 3.5,
+             1.8, 1.6, 1.6,
+             20.0, 20.0, 20.0, 20.0,
+             0.01, 2.7, 2.7,
+             0.1, 0.1, 0.1, 0.1]
+        )
         sigma_theta = np.deg2rad(2.0)
         q_vec_std = 0.5 * sigma_theta
         q_w_std = 0.1 * q_vec_std

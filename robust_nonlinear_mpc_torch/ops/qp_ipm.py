@@ -35,7 +35,13 @@ from robust_nonlinear_mpc_torch.utils.batch import (
     tree_where,
 )
 from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
-from robust_nonlinear_mpc_torch.utils.numerics import mv, spd_solve_refined, sym
+from robust_nonlinear_mpc_torch.utils.numerics import (
+    mv,
+    qp_direction_precision,
+    spd_inverse,
+    spd_solve_refined,
+    sym,
+)
 
 
 class QPStatics(NamedTuple):
@@ -100,15 +106,22 @@ class IPMOptions(NamedTuple):
     #                  kernel (ops/fused_qp.ipm_iteration, csrc/fused_ipm.cu):
     #                  the port's name for "pallas_iter". The kernel builds the
     #                  curvature Gram products from W = lam / s; W and the done
-    #                  bookkeeping stay outside it.
-    # On CPU tensors the kernels' plain torch twins run. The JAX option
-    # "condensed" is not ported.
+    #                  bookkeeping stay outside it;
+    #   "condensed"  - states eliminated through the dynamics once per QP
+    #                  (`condense`), then each iteration assembles the dense
+    #                  (N nu)^2 Hessian H = Hq + M' W M, Jacobi-equilibrates
+    #                  it, inverts it (batched Cholesky, `spd_inverse`) with
+    #                  Newton-Schulz polish and solves with two exact-matvec
+    #                  refinement passes. Torch ops only (no kernel of its
+    #                  own; the JAX package builds it from XLA ops too) and
+    #                  always in full precision. A research option: JAX
+    #                  measured and rejected it as the default.
+    # On CPU tensors the kernels' plain torch twins run.
     kkt: str = "riccati"
 
 
-KKT_SOLVERS = ("riccati", "fused", "fused_iter")
+KKT_SOLVERS = ("riccati", "fused", "fused_iter", "condensed")
 _NOT_PORTED_KKT = {
-    "condensed": "ROADMAP.md Open items, queue 1 item 3 (research options)",
     "pallas": "use kkt='fused', the port's name for the fused Newton kernels",
     "pallas_iter": "use kkt='fused_iter', the port's name for the whole-iteration kernel",
 }
@@ -258,9 +271,15 @@ def _riccati_newton(stat: QPStatics, data: QPData):
     factorization fused with the predictor solve, then `nsolve` for the
     corrector against the cached factors."""
     def newton(W, W_f, rbx, rbxN, rbu, req):
-        fact, (kff, pn) = _factorize_with_presolve(stat, data, W, W_f, rbx, rbxN, rbu, req)
-        dX, dU, _ = _forward_sweep(data.A, data.B, fact[0], kff, req, fact[3], pn)
-        return dX, dU, lambda *r: _solve_newton(stat, data, fact, *r, req)
+        with qp_direction_precision():
+            fact, (kff, pn) = _factorize_with_presolve(stat, data, W, W_f, rbx, rbxN, rbu, req)
+            dX, dU, _ = _forward_sweep(data.A, data.B, fact[0], kff, req, fact[3], pn)
+
+        def nsolve(*r):
+            with qp_direction_precision():
+                return _solve_newton(stat, data, fact, *r, req)
+
+        return dX, dU, nsolve
 
     return newton
 
@@ -269,21 +288,143 @@ def _fused_newton(stat: QPStatics, data: QPData, factor_predictor, resolve):
     """Newton solves by the fused pair (`ops/fused_qp.factor_predictor` /
     `resolve`, or their plain twins) on the curvature of the weights."""
     def newton(W, W_f, rbx, rbxN, rbu, req):
-        Cxx, Cuu, Cxu, PN = _curvature(stat, W, W_f)
+        with qp_direction_precision():
+            Cxx, Cuu, Cxu, PN = _curvature(stat, W, W_f)
         dX, dU, _, fact = factor_predictor(data.A, data.B, Cxx, Cuu, Cxu, PN, rbx, rbxN, rbu, req)
         return dX, dU, lambda *r: resolve(data.A, data.B, fact, *r, req)
 
     return newton
 
 
+# ----------------------------------------------------------------------
+# Condensed KKT: eliminate the states through the dynamics
+# ----------------------------------------------------------------------
+class CondensedKKT(NamedTuple):
+    """Per-QP precompute of the "condensed" Newton solve. It depends only on
+    (A, B) and the statics, not on the IPM weights, so one serves every IPM
+    iteration and every QP of a fast-SLS solve."""
+
+    Ash: torch.Tensor     # (B, N+1, N, nx, nx)  Ash[k, j] = A_{k-1}...A_{j+1} (zero for j+1 > k)
+    Bbar: torch.Tensor    # (B, N+1, N, nx, nu)  dX_k / dU_j = Ash[k, j] B_j
+    M2: torch.Tensor      # (B, N ni + ni_f, N nu) inequality rows' sensitivity to dU
+    Hq: torch.Tensor      # (B, N nu, N nu)      blkdiag(Hu) + Bbar' Hx_aug Bbar
+    Hx_aug: torch.Tensor  # (N+1, nx, nx)        [Hx_0..Hx_{N-1}, HxN]
+
+
+def condense(stat: QPStatics, A: torch.Tensor, B: torch.Tensor) -> CondensedKKT:
+    """The condensed-KKT tensors of a batch; `stat` in per-stage form."""
+    Bsz, N, nx, _ = A.shape
+    nu = B.shape[3]
+    ni = stat.Gx.shape[1]
+    cols = torch.arange(N + 1, device=A.device)
+    eye = torch.eye(nx, dtype=A.dtype, device=A.device)
+    # Abar rows by a forward loop: row_k[j] = Abar[k, j] = A_{k-1}...A_j
+    row = torch.where((cols == 0)[:, None, None], eye, 0.0).expand(Bsz, N + 1, nx, nx)
+    rows = [row]
+    for k in range(N):
+        nxt = torch.einsum("bac,bjcd->bjad", A[:, k], row)
+        nxt = torch.where((cols == k + 1)[:, None, None], eye, nxt)
+        row = torch.where((cols <= k + 1)[:, None, None], nxt, 0.0)
+        rows.append(row)
+    Ash = torch.stack(rows, dim=1)[:, :, 1:]          # Ash[k, j] = Abar[k, j+1]
+    Bbar = torch.einsum("bkjac,bjcu->bkjau", Ash, B)
+
+    Mt = torch.einsum("kri,bkjiu->bkrju", stat.Gx, Bbar[:, :N])
+    for k in range(N):
+        Mt[:, k, :, k, :] += stat.Gu[k]
+    Mf = torch.einsum("ri,bjiu->brju", stat.Gf, Bbar[:, N])
+    M2 = torch.cat([Mt.reshape(Bsz, N * ni, N * nu), Mf.reshape(Bsz, -1, N * nu)], dim=1)
+
+    Hx_aug = torch.cat([stat.Hx, stat.HxN[None]], dim=0)
+    HB = torch.einsum("kac,bkjcu->bkjau", Hx_aug, Bbar)
+    Hq = torch.einsum("bkjau,bklav->bjulv", Bbar, HB).reshape(Bsz, N * nu, N * nu)
+    for k in range(N):
+        Hq[:, k * nu : (k + 1) * nu, k * nu : (k + 1) * nu] += stat.Hu[k]
+    return CondensedKKT(Ash=Ash, Bbar=Bbar, M2=M2, Hq=Hq, Hx_aug=Hx_aug)
+
+
+def _condensed_newton(stat: QPStatics, pre: CondensedKKT, W, W_f, req):
+    """The Newton solve for this iteration's weights: nsolve(rbx, rbxN, rbu)
+    -> (dX, dU)."""
+    Bsz, N, _ = W.shape
+    nu = pre.Bbar.shape[4]
+    wf = torch.cat([W.reshape(Bsz, -1), W_f], dim=1)                   # (B, nc)
+    M2t = pre.M2.transpose(-1, -2)
+    Hmat = sym(pre.Hq + M2t @ (wf[..., None] * pre.M2))
+    # Jacobi scaling: the weights spread over many orders of magnitude as
+    # mu -> 0 (cond(H) ~ 1/mu^2); the solves run in the scaled space with
+    # two refinement passes on the exact matvec
+    dinv = torch.rsqrt(torch.clamp(torch.diagonal(Hmat, dim1=-2, dim2=-1),
+                                   min=torch.finfo(Hmat.dtype).tiny))
+    Hs = Hmat * dinv[..., :, None] * dinv[..., None, :]
+    eye = torch.eye(Hs.shape[-1], dtype=Hs.dtype, device=Hs.device)
+    Hs_inv = spd_inverse(Hs + 10.0 * torch.finfo(Hs.dtype).eps * eye)
+    # Newton-Schulz polish: each step squares the inverse's error
+    for _ in range(4):
+        Hs_inv = sym(Hs_inv @ (2.0 * eye - Hs @ Hs_inv))
+
+    def happly_inv(rhs):
+        return dinv * mv(Hs_inv, dinv * rhs)
+
+    # affine state response to the dynamics residuals (dx_0 = 0)
+    rbar = torch.einsum("bkjac,bjc->bka", pre.Ash, req)                # (B, N+1, nx)
+    mbar = torch.cat([torch.einsum("kri,bki->bkr", stat.Gx, rbar[:, :N]).reshape(Bsz, -1),
+                      rbar[:, N] @ stat.Gf.T], dim=1)
+    W_mbar = wf * mbar
+
+    def hmul(x):
+        return mv(pre.Hq, x) + mv(M2t, wf * mv(pre.M2, x))
+
+    def nsolve(rbx, rbxN, rbu):
+        v = torch.einsum("kac,bkc->bka", pre.Hx_aug, rbar) + torch.cat([rbx, rbxN[:, None]], dim=1)
+        g = (torch.einsum("bkjau,bka->bju", pre.Bbar, v).reshape(Bsz, -1)
+             + mv(M2t, W_mbar) + rbu.reshape(Bsz, -1))
+        dU = -happly_inv(g)
+        dU = dU + happly_inv(-g - hmul(dU))
+        dU = dU + happly_inv(-g - hmul(dU))
+        dUr = dU.reshape(Bsz, N, nu)
+        dX = torch.einsum("bkjau,bju->bka", pre.Bbar, dUr) + rbar
+        return dX, dUr
+
+    return nsolve
+
+
+def _condensed_dnu(stat: QPStatics, pre: CondensedKKT):
+    """dnu(dX, dlam, dlam_f, rx, rxN): the dynamics duals by the adjoint
+    transition map from the original stationarity rows, dnu_k = -sum_{l > k}
+    Abar[l, k+1]' s_l with s_l = Hx_l dx_l + Gx_l' dlam_l + rx_l (the
+    recovered dlam keeps it stable to convergence)."""
+    def dnu(dX, dlam, dlam_f, rx, rxN):
+        N = dlam.shape[1]
+        s_stage = (torch.einsum("kac,bkc->bka", stat.Hx[1:N], dX[:, 1:N])
+                   + torch.einsum("kri,bkr->bki", stat.Gx[1:N], dlam[:, 1:N]) + rx)
+        s_term = dX[:, N] @ stat.HxN.T + dlam_f @ stat.Gf + rxN
+        s_aug = torch.cat([torch.zeros_like(s_term[:, None]), s_stage, s_term[:, None]], dim=1)
+        return -torch.einsum("zlkac,zla->zkc", pre.Ash, s_aug)
+
+    return dnu
+
+
+def _condensed_newton_solver(stat: QPStatics, pre: CondensedKKT):
+    """Newton solves by the condensed KKT (kkt="condensed")."""
+    def newton(W, W_f, rbx, rbxN, rbu, req):
+        nsolve = _condensed_newton(stat, pre, W, W_f, req)
+        dX, dU = nsolve(rbx, rbxN, rbu)
+        return dX, dU, lambda *r: (*nsolve(*r), None)
+
+    return newton
+
+
 def _mehrotra_iteration(stat: QPStatics, data: QPData, state, newton, *, tau, n_comp,
-                        scale_p, frozen=None):
+                        scale_p, frozen=None, dnu_from=None):
     """One Mehrotra predictor-corrector iteration for every lane.
 
     `state` = (X, U, lam, s, lam_f, s_f, nu_dyn, R) with R the residuals at
     the iterate. `newton(W, W_f, rbx, rbxN, rbu, req)` factorizes and solves
     the predictor system, returning (dX, dU, nsolve) with nsolve(rbx, rbxN,
-    rbu) -> (dX, dU, dnu) the corrector solve. Lanes in `frozen` keep their
+    rbu) -> (dX, dU, dnu) the corrector solve; with `dnu_from(dX, dlam,
+    dlam_f, rx, rxN)` (the condensed solve) dnu comes from the recovered
+    duals instead. Lanes in `frozen` keep their
     iterate; a lane whose new KKT scalar is not finite keeps its iterate and
     residuals and reports its old KKT scalar. Returns (state_n, res_n, bad).
     """
@@ -295,19 +436,22 @@ def _mehrotra_iteration(stat: QPStatics, data: QPData, state, newton, *, tau, n_
     def reduced_rhs(rcomp, rcomp_f):
         t = (lam * rineq - rcomp) / s
         t_f = (lam_f * rineq_f - rcomp_f) / s_f
-        rbx = rx + torch.einsum("kri,bkr->bki", stat.Gx[1:N], t[:, 1:N])
+        with qp_direction_precision():
+            rbx = rx + torch.einsum("kri,bkr->bki", stat.Gx[1:N], t[:, 1:N])
+            rbxN = rxN + t_f @ stat.Gf
+            rbu = ru + torch.einsum("kru,bkr->bku", stat.Gu, t)
         rbx = torch.cat([torch.zeros_like(rbx[:, :1]), rbx], dim=1)
-        rbxN = rxN + t_f @ stat.Gf
-        rbu = ru + torch.einsum("kru,bkr->bku", stat.Gu, t)
         return rbx, rbxN, rbu
 
     def recover(dX, dU, rcomp, rcomp_f):
-        dGz = torch.einsum("kri,bki->bkr", stat.Gx, dX[:, :N]) + torch.einsum(
-            "kru,bku->bkr", stat.Gu, dU
-        )
+        with qp_direction_precision():
+            dGz = torch.einsum("kri,bki->bkr", stat.Gx, dX[:, :N]) + torch.einsum(
+                "kru,bku->bkr", stat.Gu, dU
+            )
+            dGz_f = dX[:, N] @ stat.Gf.T
         ds = -rineq - dGz
         dlam = -(rcomp + lam * ds) / s
-        ds_f = -rineq_f - dX[:, N] @ stat.Gf.T
+        ds_f = -rineq_f - dGz_f
         dlam_f = -(rcomp_f + lam_f * ds_f) / s_f
         return ds, dlam, ds_f, dlam_f
 
@@ -336,6 +480,8 @@ def _mehrotra_iteration(stat: QPStatics, data: QPData, state, newton, *, tau, n_
     rcomp_cf = lam_f * s_f + dsfa * dlamfa - sm[:, None]
     dX, dU, dnu = nsolve(*reduced_rhs(rcomp_c, rcomp_cf))
     ds, dlam, ds_f, dlam_f = recover(dX, dU, rcomp_c, rcomp_cf)
+    if dnu_from is not None:
+        dnu = dnu_from(dX, dlam, dlam_f, rx, rxN)
 
     alpha_p = torch.minimum(
         _step_to_boundary(s, ds, tau), _step_to_boundary(s_f, ds_f, tau)
@@ -374,6 +520,7 @@ def solve_qp(
     init: QPSolution | None = None,
     max_iter_dyn=None,
     max_iter_bound: int | None = None,
+    pre: CondensedKKT | None = None,
 ) -> QPSolution:
     """Solve a batch of horizon-structured QPs.
 
@@ -383,7 +530,9 @@ def solve_qp(
     count inside `no_host_sync()`, which needs it with `max_iter_dyn`.
     `init`: optional warm start; primal from init, slacks re-centered to the
     new bounds with a margin, duals floored, then Mehrotra's initial-point
-    shift.
+    shift. `pre`: the condensed-KKT precompute of `data`'s (A, B) for
+    kkt="condensed" (built here when None), which fast-SLS shares between
+    the QPs of one solve.
     """
     if opts.kkt in _NOT_PORTED_KKT:
         raise NotImplementedError(
@@ -457,17 +606,23 @@ def solve_qp(
             R_n = (req_n, rineq_n, rineqf_n, rxpad_n[:, 1:], rxN_n, ru_n)
             return (*it_n, R_n), res_n, bad
     else:
+        dnu_from = None
         if opts.kkt == "fused":
             from robust_nonlinear_mpc_torch.ops.fused_qp import factor_predictor, resolve
 
             newton = _fused_newton(stat, data, factor_predictor, resolve)
+        elif opts.kkt == "condensed":
+            if pre is None:
+                pre = condense(stat, data.A, data.B)
+            newton = _condensed_newton_solver(stat, pre)
+            dnu_from = _condensed_dnu(stat, pre)
         else:
             newton = _riccati_newton(stat, data)
 
         def iterate(state, frozen):
             # inactive lanes are frozen by the loop's select
             return _mehrotra_iteration(stat, data, state, newton, tau=opts.tau,
-                                       n_comp=n_comp, scale_p=scale_p)
+                                       n_comp=n_comp, scale_p=scale_p, dnu_from=dnu_from)
 
     R = _residuals(stat, data, X0, U0, lam0, s0, lamf0, sf0, nu0)
     state = (X0, U0, lam0, s0, lamf0, sf0, nu0, R)

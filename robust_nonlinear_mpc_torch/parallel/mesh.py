@@ -22,8 +22,6 @@ import torch.distributed as dist
 
 from robust_nonlinear_mpc_torch.utils.batch import tree_map
 
-SCENARIO_AXIS = "scenarios"
-
 
 class Mesh(NamedTuple):
     """A 1-D mesh: this process's place in a process group."""

@@ -34,6 +34,7 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     QPData,
     QPSolution,
     QPStatics,
+    condense,
     solve_qp,
 )
 from robust_nonlinear_mpc_torch.ops.fused_backward import backward_K
@@ -50,6 +51,7 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import (
 )
 from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where, tree_where
 from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
+from robust_nonlinear_mpc_torch.utils.numerics import tube_precision
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
@@ -303,6 +305,11 @@ def fast_sls_solve(
         steady_cap, cold_cap = opts.adaptive_ipm_budget
         budget = torch.where(persist.qp_steady, steady_cap, cold_cap).to(torch.int32)
         budget_bound = max(int(steady_cap), int(cold_cap))
+    # the condensed-KKT precompute depends only on (A, B): one for every QP
+    # of this solve
+    pre = None
+    if "condensed" in (opts.ipm.kkt, getattr(opts.ipm_first, "kkt", None)):
+        pre = condense(prob.stat.per_stage(N), A, B)
 
     def forward(applied, applied_f, init=None, first=False):
         data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - applied,
@@ -310,9 +317,9 @@ def fast_sls_solve(
         use_first = first and opts.ipm_first is not None
         with stage("sls.qp"):
             if use_first:
-                return solve_qp(prob.stat, data, opts.ipm_first, init=init)
+                return solve_qp(prob.stat, data, opts.ipm_first, init=init, pre=pre)
             return solve_qp(prob.stat, data, opts.ipm, init=init, max_iter_dyn=budget,
-                            max_iter_bound=budget_bound)
+                            max_iter_bound=budget_bound, pre=pre)
 
     def warm_init():
         w = persist.qp_warm
@@ -341,9 +348,9 @@ def fast_sls_solve(
 
     if opts.recycle_eta:
         # dual-recycling RTI: K from the persisted eta, one tightened QP
-        with stage("sls.backward"):
+        with stage("sls.backward"), tube_precision():
             K_r = gains(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)
-        with stage("sls.response"):
+        with stage("sls.response"), tube_precision():
             Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
                 prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
             )
@@ -397,9 +404,9 @@ def fast_sls_solve(
         """eta -> backward Riccati -> response -> retighten."""
         sol = carry.sol
         eta, eta_f = evaluate_dual_eta(sol.lam, sol.lam_f, carry.beta, carry.beta_f, eps)
-        with stage("sls.backward"):
+        with stage("sls.backward"), tube_precision():
             K = gains(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)
-        with stage("sls.response"):
+        with stage("sls.response"), tube_precision():
             Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
                 prob, A, B, K, opts, carry.Phi_x, carry.Phi_u
             )

@@ -424,6 +424,7 @@ class SCPSLSSolver(nn.Module):
             propagate,
         )
         from robust_nonlinear_mpc_torch.solvers.fast_sls import select_sls_kernels
+        from robust_nonlinear_mpc_torch.utils.numerics import tube_precision
 
         backward_solve = select_sls_kernels(self.opts.sls_block)[0]
         x0 = self._t(x0).reshape(1, -1)
@@ -446,12 +447,14 @@ class SCPSLSSolver(nn.Module):
 
         def bwd(A, B, lam, lam_f, beta, beta_f):
             eta, eta_f = evaluate_dual_eta(lam, lam_f, beta, beta_f, self.opts.epsilon_backoff)
-            return eta, eta_f, backward_solve(A, B, Gmat, stat.Gf, eta, eta_f, self.prob.regs)[1]
+            with tube_precision():
+                return eta, eta_f, backward_solve(A, B, Gmat, stat.Gf, eta, eta_f, self.prob.regs)[1]
 
         def tighten(A, B, K):
-            Phi_x, Phi_u = propagate(A, B, self.prob.E, K)
-            return backoff_from_phi(Phi_x, Phi_u, stat.Gx, stat.Gu, stat.Gf,
-                                    self.opts.epsilon_backoff)
+            with tube_precision():
+                Phi_x, Phi_u = propagate(A, B, self.prob.E, K)
+                return backoff_from_phi(Phi_x, Phi_u, stat.Gx, stat.Gu, stat.Gf,
+                                        self.opts.epsilon_backoff)
 
         (A, B, c, qx, qu, g_res, gf_res, xinit), t_jac = timed(
             self.assemble_deviation_problem, X, U, x0)

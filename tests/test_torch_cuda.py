@@ -9,7 +9,9 @@ backward kernel at the main path's shape, a ragged batch, a long horizon,
 the same edges (K3 also at narrow inputs); the until-convergence closed
 loop with every mitigation (chip_smoke phase 9a) on the card at B = 529 for
 one step against the CPU on its first 16 lanes; the RTI step captured as
-one CUDA graph against the eager step at B = 529 over 3 steps.
+one CUDA graph against the eager step at B = 529 over 3 steps; the
+condensed IPM (torch ops) on the card against the CPU; the TF32 precision
+switches restoring the process's setting.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -142,3 +144,45 @@ def test_captured_step_matches_eager_at_529(smoke):
     wl = bench.build_workload(B=529, n_warm=0, n_rep=3)
     in_graph = smoke.captured_vs_eager("529", wl, wl.carry, wl.w_seq)
     assert {"factor_predictor", "resolve"} <= set(in_graph)
+
+
+def test_condensed_card_matches_cpu(smoke):
+    # kkt="condensed" (torch ops only) on the card against the CPU, float64,
+    # well-conditioned random QPs at the rocket's widths, B = 529: the same
+    # iterations on every lane, X/U within 1e-9 relative
+    from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions, solve_qp
+
+    stat, data = smoke.random_qps(529, 15, smoke.NX, smoke.NU, torch.float64, "cuda", seed=4)
+    opts = IPMOptions(max_iter=30, tol=1e-9, kkt="condensed")
+    card = solve_qp(stat, data, opts)
+    cpu = solve_qp(type(stat)(*(t.cpu() for t in stat)), type(data)(*(t.cpu() for t in data)),
+                   opts)
+    assert torch.equal(card.iters.cpu(), cpu.iters) and bool(card.success.all())
+    assert smoke.rel_err(card.X.cpu(), cpu.X)[0] <= 1e-9
+    assert smoke.rel_err(card.U.cpu(), cpu.U)[0] <= 1e-9
+
+
+def test_tf32_switch_restores_the_global_flag(smoke):
+    # "default" turns TF32 on only inside its contexts; a float32 solve and a
+    # bench step leave the process's setting as it was
+    from robust_nonlinear_mpc_torch import bench
+    from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions, solve_qp
+    from robust_nonlinear_mpc_torch.utils import numerics
+
+    before = numerics.tf32_enabled()
+    stat, data = smoke.rocket_qps(64, 15, torch.float32, "cuda", seed=3)
+    wl = bench.build_workload(B=16, n_warm=0, n_rep=1)
+    try:
+        numerics.set_tube_precision("default")
+        numerics.set_qp_direction_precision("default")
+        for ctx in (numerics.tube_precision, numerics.qp_direction_precision):
+            with ctx():
+                assert numerics.tf32_enabled()
+            assert numerics.tf32_enabled() == before
+        solve_qp(stat, data, IPMOptions(max_iter=15, tol=3e-5, kkt="fused"))
+        wl.mpc_step(wl.carry, wl.w_seq[0])
+        torch.cuda.synchronize()
+        assert numerics.tf32_enabled() == before
+    finally:
+        numerics.set_tube_precision("highest")
+        numerics.set_qp_direction_precision("highest")

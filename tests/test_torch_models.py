@@ -42,6 +42,18 @@ def test_constants_and_constraints_match():
         assert np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("field", ["E_crs", "neutral_state", "constraint_names",
+                                   "constraint_names_f"])
+def test_unread_fields_match(field):
+    """The fields no solver reads (the JAX model keeps them for its tools and
+    plots) hold the JAX values."""
+    a, b = getattr(TRocket(device="cpu"), field), getattr(JRocket(), field)
+    if isinstance(b, list):
+        assert list(a) == b
+    else:
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_buffers_follow_to():
     tr = TRocket(device="cpu").to(torch.float32)
     assert tr.G.dtype == torch.float32 and tr.E.dtype == torch.float32

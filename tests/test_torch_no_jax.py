@@ -35,7 +35,9 @@ def test_port_has_sources():
                 "models/linear.py", "models/integrator.py", "solvers/ocp.py",
                 "solvers/qp_frontend.py", "ops/qp_export.py", "native/__init__.py",
                 "parallel/mesh.py", "parallel/distributed.py", "parallel/columns.py",
-                "entry.py", "tools/column_scaling.py"):
+                "entry.py", "tools/column_scaling.py", "tools/stage_profile.py",
+                "tools/bench_sweep.py", "tools/kernel_bench.py", "tools/dtype_deviation.py",
+                "tools/converged_probe.py", "tools/n60_probe.py", "tools/precompile.py"):
         assert PORT / rel in SOURCES, rel
     assert (PORT / "native" / "rnm_qp.cpp").is_file()
 

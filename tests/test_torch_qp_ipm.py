@@ -129,7 +129,9 @@ def test_warm_start_and_lane_caps_match_jax(kkt, warm_ref):
 
 
 def test_unported_newton_solvers_raise():
+    # the JAX names of the kernels' paths, which the port calls "fused" and
+    # "fused_iter"; "condensed" is ported (tests/test_torch_condensed.py)
     stat, data = _problem(0)
-    for kkt in ("condensed", "pallas_iter", "pallas"):
+    for kkt in ("pallas_iter", "pallas"):
         with pytest.raises(NotImplementedError):
             tq.solve_qp(*_torch(stat, data), tq.IPMOptions(kkt=kkt))
