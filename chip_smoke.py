@@ -51,31 +51,39 @@ before the result lines):
      stage breakdown and busy shares: the third path (K3), which must launch
      in the timed replays. Each bench run's B = 1 latency loop is cut to 50
      steps (the twin alone runs 200);
-  9. guarantee mode, the until-convergence closed loop: (a) the rocket at
-     N = 6, B = 8, float64, 2 steps, until the SCP criterion 1e-3 (at most
-     40 SCP iterations), with feasibility restoration, stall damping 0.5
-     after 5 SCP iterations and the soft fallback, kkt="fused"
-     on the card (K1/K2) against the CPU (plain versions): identical
-     success, SCP iterations, scp_failed and QP iterations on every lane,
-     X/U and the finite backoffs within 1e-8, for build_batched_closed_loop
-     and for build_chunked_converged_loop at scp_per_dispatch 1 and 5;
+  9. guarantee mode, the until-convergence closed loop in the JAX form
+     (every lane, masked, fixed shapes; on the card the seed's loops and
+     each piece of an SCP round are CUDA graphs, with host reads of a
+     device flag between them): (a) the rocket at N = 6, B = 8, float64,
+     2 steps, until the SCP criterion 1e-3 (at most 40 SCP iterations),
+     with feasibility restoration, stall damping 0.5 after 5 SCP
+     iterations and the soft fallback, kkt="fused" on the card (K1/K2)
+     against the CPU (plain versions): identical success, SCP iterations,
+     scp_failed and QP iterations on every lane, X/U and the finite
+     backoffs within 1e-8, for build_batched_closed_loop and for
+     build_chunked_converged_loop at scp_per_dispatch 1 and 5; and each
+     chunked run on the card's CUDA graphs against the eager masked loop
+     on the card (`capture=False`): the same flags and counts, X/U and
+     the backoffs within 1e-9, with the host reads of each step;
      (b) the full-mitigation Monte-Carlo validation of the rocket
      (main_monte_carlo_validation --converged --soft-fallback --restoration
      --max-iter-scp 40 --qp-tol 1e-5 --stall-damping 0.5 --kkt fused),
      float32, N = 15, B = 128 lanes from seed 0, T = 3 steps (the published
      run has T = 10; 3 is the least at which the violation count checks a
-     state the controller produced): the guarantee
-     n_violation_steps_on_success == 0 over a check that covers closed-loop
-     states, tube containment 1 on successful solves, K1/K2 launched,
-     seconds of the seed, of each step and of every stage (each
-     synchronized at its ends), the success flags against the published
-     run's first 3 steps, and the device busy share of the last step's
-     first SCP round (profiler). Phase 9b runs in a second process, started
-     first (its seed needs no kernel), while this one builds and runs the
-     untimed phases 4, 5 and 9a, so its seconds are contended; phases 3 and
-     6-8, which time, run after it, alone on the card.
-     `--guarantee-alone steps|stages` runs phase 9b alone (after the build),
-     with the seed and steps timed or every stage timed;
+     state the controller produced), through CUDA graphs (scp_per_dispatch
+     2): the guarantee n_violation_steps_on_success == 0 over a check that
+     covers closed-loop states, tube containment 1 on successful solves,
+     the run captured and K1/K2 launched in every step's replays; seconds
+     of the seed, of each step and of every kind of graph replay (each
+     synchronized at its ends), each step's host reads, graph replays and
+     K1/K2 launches, the success flags against the published run's first 3
+     steps, and the device busy share of the last step's first SCP round
+     through its graphs (profiler). Phase 9b runs in a second process,
+     started first, while this one builds and runs the untimed phases 4, 5
+     and 9a, so its seconds are contended; phases 3 and 6-8, which time,
+     run after it, alone on the card. `--guarantee-alone steps|stages` runs
+     phase 9b alone (after the build), with the seed and steps timed or
+     every stage timed;
  10. the RTI step captured as one CUDA graph against the eager step on the
      card (run after phase 5, among the untimed phases): (a) B = 512,
      N = 15, float32, 3 steps from the bench seed in the default, the
@@ -1027,10 +1035,17 @@ def compare_logs(label, got, ref, tol=1e-8):
 def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunked=(1, 5),
                     ref_lanes=None):
     """Phase 9a: the until-convergence closed loop with every mitigation,
-    devices[0] (the kernels) against devices[1] (the plain versions), from
-    the same draws (x0 spread 0.05 around X0, w in [-1, 1]). `ref_lanes`:
-    the reference runs only the first lanes (each lane's result does not
-    depend on the others in its batch)."""
+    devices[0] (the kernels; on the card the seed's loops and the SCP
+    rounds' pieces run as CUDA graphs) against devices[1] (the plain
+    versions), from the same draws (x0 spread 0.05 around X0, w in [-1, 1]),
+    for build_batched_closed_loop and for build_chunked_converged_loop at
+    each scp_per_dispatch in `chunked`; and each chunked run captured
+    against the eager masked loop on devices[0] (`capture=False`, run once,
+    at the first scp_per_dispatch: the masked loop's results do not depend
+    on it): identical flags and iteration counts, X/U and the backoffs
+    within 1e-9.
+    `ref_lanes`: the reference runs only the first lanes (each lane's result
+    does not depend on the others in its batch)."""
     dtype = torch.float64
     solvers = {}
     for device in devices:
@@ -1052,9 +1067,12 @@ def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunke
     solvers[card]._restore = counting
     fused_qp.reset_launch_counts()
     t0 = time.perf_counter()
-    got = build_batched_closed_loop(solvers[card], steps)(x0s, Ws)
+    run = build_batched_closed_loop(solvers[card], steps)
+    got = run(x0s, Ws)
     t_card = time.perf_counter() - t0
     launches = fused_qp.launch_counts()
+    if card == "cuda" and not run.record["captured"]:
+        fail("[9a] the converged loop on the card did not run as CUDA graphs")
     t0 = time.perf_counter()
     ref = build_batched_closed_loop(solvers[host], steps)(x0s[:ref_lanes], Ws[:ref_lanes])
     t_host = time.perf_counter() - t0
@@ -1068,13 +1086,30 @@ def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunke
         f"{shown.success.tolist()}, SCP iterations {shown.scp_iters.tolist()} (max of all "
         f"{int(got.scp_iters.max())}), scp_failed {int(got.scp_failed.sum())}, QP iterations "
         f"{shown.qp_iters.tolist()}, restored lane-iterations {sum(restored)}, max |diff| "
-        f"{worst:.2e}, launches {launches}")
+        f"{worst:.2e}, launches {launches}, host reads per step "
+        f"{[c['host_reads'] for c in run.record['steps']]}")
+    eager = None
     for kpd in chunked:
         t0 = time.perf_counter()
-        ch = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd)(x0s, Ws)
+        run = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd)
+        ch = run(x0s, Ws)
+        t_ch = time.perf_counter() - t0
+        if eager is None:
+            # the masked loop's results do not depend on scp_per_dispatch:
+            # one eager run is the reference of every captured one
+            t0 = time.perf_counter()
+            eager = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd,
+                                                 capture=False)(x0s, Ws)
+            t_eager = time.perf_counter() - t0
+        same = compare_logs(f"9a chunked {kpd} captured/eager", ch, eager, tol=1e-9)
         worst = compare_logs(f"9a chunked {kpd}", lanes(ch), ref)
-        say(f"[9a] chunked scp_per_dispatch={kpd} on {card} ({time.perf_counter() - t0:.1f} s) "
-            f"against the {host} batched loop: max |diff| {worst:.2e}")
+        steps_rec = run.record["steps"]
+        say(f"[9a] chunked scp_per_dispatch={kpd} on {card}, captured {t_ch:.1f} s "
+            f"(host reads per step {[c['host_reads'] for c in steps_rec]}, graph replays "
+            f"{[sum(c.values()) - c['host_reads'] for c in steps_rec]}) against the eager "
+            f"masked loop (scp_per_dispatch={chunked[0]}, {t_eager:.1f} s): max |diff| "
+            f"{same:.2e}; against the {host} batched "
+            f"loop: max |diff| {worst:.2e}")
 
 
 GUARANTEE_FLAGS = dict(converged=True, soft_fallback=True, restoration=True, max_iter_scp=40,
@@ -1082,20 +1117,28 @@ GUARANTEE_FLAGS = dict(converged=True, soft_fallback=True, restoration=True, max
 PUBLISHED_RUN = Path("artifacts/mc_validation_rocket_converged_tpu_f32_128_fullmit_r5.npz")
 
 
-def profile_round(solver, st, x):
-    """One SCP iteration of every lane (`solver._iteration`) from a step's
-    entry state `st` (a `sim.closed_loop._ConvState`) at plant state x, as
-    the step's first SCP round runs it, on the host clock and again under the
-    profiler (CUDA activity only): its ms, the device kernel ms and their
-    ratio, the device busy share of a full-batch round."""
+def profile_round(solver, st, x, graphs):
+    """One masked SCP round of every lane (`sim.closed_loop._scp_round`, the
+    undecided lanes running) from a step's entry state `st` (a
+    `sim.closed_loop._ConvState`) at plant state x, through the run's CUDA
+    graphs `graphs`, as the step's first SCP round runs it: on the host
+    clock and again under the profiler (CUDA activity only), its ms, the
+    summed device kernel ms (kernels of a graph may overlap), and the busy
+    share of a round: the union of the kernels' device intervals over the
+    round's ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from robust_nonlinear_mpc_torch.sim import closed_loop as cl
+
+    max_scp = int(solver.opts.max_iter_scp)
+
     def one_round():
-        solver._iteration(st.X, st.U, x, st.persist)
+        s, xs = graphs.static("scp.state", st), graphs.static("scp.x", x)
+        cl._scp_round(solver, s, xs, cl._undecided(s, max_scp), graphs)
         torch.cuda.synchronize()
 
-    torch.cuda.synchronize()
+    one_round()
     t0 = time.perf_counter()
     one_round()
     round_ms = 1e3 * (time.perf_counter() - t0)
@@ -1103,23 +1146,35 @@ def profile_round(solver, st, x):
         one_round()
     device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
                     if ev.device_type == DeviceType.CUDA) / 1e3
-    return {"round_ms": round_ms, "device_kernel_ms": device_ms,
-            "device_busy_share": device_ms / round_ms}
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return {"round_ms": round_ms, "device_kernel_ms": device_ms, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / round_ms}
 
 
 def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     """Phase 9b: the published full-mitigation converged Monte-Carlo
     validation of the rocket on the card (float32, N = 15), through the
-    driver a user runs, with T cut from 10 to 3. The violation count checks
-    (x_t, u_t) for t < T - 1 and x_0 is the draw, so T = 3 is the least at
-    which it checks a state the controller produced (x_1); the tube
-    containment checks x_1 and x_2. Fails unless K1/K2 launched, no
-    successful step violates a constraint, the count covered a closed-loop
-    state, and every successful step's tube contains the next state. Times
-    the seed and each step (`utils.stages`: "seed" and "step" only, which
+    driver a user runs, with T cut from 10 to 3: the seed's loops and every
+    piece of an SCP round as CUDA graphs, with host reads of a device flag
+    between them (the inner loop's, the restoration's and, once every
+    scp_per_dispatch = 2 rounds, whether every lane is decided). The
+    violation count checks (x_t, u_t) for t < T - 1 and x_0 is the draw, so
+    T = 3 is the least at which it checks a state the controller produced
+    (x_1); the tube containment checks x_1 and x_2. Fails unless the run
+    captured, K1/K2 launched in every step's replays, no successful step
+    violates a constraint, the count covered a closed-loop state, and
+    every successful step's tube contains the next state. Times the seed
+    and each step (`utils.stages`: "seed" and "step" only, which
     synchronize the card once at each end; with `stages` every stage, each
-    synchronized at its ends), and the busy share of the last step's first
-    SCP round. Writes its record to chiprun_out/`out` and returns it."""
+    synchronized at its ends: the seconds of each kind of graph replay),
+    reports each step's host reads, graph replays and K1/K2 launches (each
+    graph's launches a replay times its replays) from the driver's
+    `.graphs.json`, and the busy share of the last step's first SCP round.
+    Writes its record to chiprun_out/`out` and returns it."""
     from robust_nonlinear_mpc_torch.expe import main_monte_carlo_validation as mc
     from robust_nonlinear_mpc_torch.sim import closed_loop as cl
     from robust_nonlinear_mpc_torch.utils.stages import timed
@@ -1128,10 +1183,11 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     entry = {}
     until_converged = cl._scp_until_converged
 
-    def keep_entry(solver, st, x):
-        # the entry state of the latest step, profiled again after the run
-        entry.update(solver=solver, st=st, x=x)
-        return until_converged(solver, st, x)
+    def keep_entry(solver, st, x, per_read=1, graphs=None):
+        # the entry state of the latest step (a copy: on the card it lives in
+        # the graphs' static buffers), profiled again after the run
+        entry.update(solver=solver, st=tree_map(torch.clone, st), x=x.clone(), graphs=graphs)
+        return until_converged(solver, st, x, per_read, graphs)
 
     cl._scp_until_converged = keep_entry
     bench.reset_launch_counts()
@@ -1145,6 +1201,7 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     wall = time.perf_counter() - t0
     launches = bench.launch_counts()
     r = np.load(path, allow_pickle=True)
+    graphs = json.loads(Path(path).with_suffix(".graphs.json").read_text())
     keys = ("success_rate", "n_violation_steps_on_success", "n_violation_steps",
             "tube_containment_rate", "worst_tube_margin", "n_failed_inner",
             "n_failed_unconverged", "n_failed_scenarios", "mean_cost")
@@ -1162,6 +1219,14 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
         closed_loop_lane_steps_checked=int(covered[:, 1:].sum()),
         scp_iters_mean=float(scp.mean()), scp_iters_max=int(scp.max()),
         scp_lane_iterations=int(scp.sum()),
+        captured=graphs["captured"], scp_per_dispatch=graphs["scp_per_dispatch"],
+        seed_host_reads=graphs["seed_host_reads"][0],
+        seed_graph_replays=graphs["seed_graph_replays"][0],
+        host_reads_per_step=graphs["host_reads_per_step"],
+        graph_replays_per_step=graphs["graph_replays_per_step"],
+        graph_replays_by_piece=graphs["graph_replays_by_piece"],
+        k1k2_launches_per_step=[[c.get("factor_predictor", 0), c.get("resolve", 0)]
+                                for c in graphs["kernel_launches_per_step"]],
     )
     if stages:
         res.update(stages_s={k: sum(v) for k, v in rec.items()},
@@ -1173,11 +1238,20 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
         + f", violation check over {res['violation_lane_steps_checked']} lane-steps "
         f"({res['closed_loop_lane_steps_checked']} at a closed-loop state), SCP iterations "
         f"mean {res['scp_iters_mean']:.2f} max {res['scp_iters_max']}, launches {launches}")
+    say(f"[9b] CUDA graphs: {res['captured']}; per step host reads "
+        f"{res['host_reads_per_step']}, graph replays {res['graph_replays_per_step']}, "
+        f"K1/K2 launches {res['k1k2_launches_per_step']}; seed host reads "
+        f"{res['seed_host_reads']}, replays {res['seed_graph_replays']} (scp_per_dispatch "
+        f"{res['scp_per_dispatch']}); replays by piece {res['graph_replays_by_piece']}")
     if stages:
         say("[9b] stage s (calls): " + ", ".join(
             f"{k} {v:.2f} ({res['stage_calls'][k]})" for k, v in res["stages_s"].items()))
-    if min(launches["factor_predictor"], launches["resolve"]) <= 0:
-        fail(f"[9b] the guarantee run did not launch K1/K2: {launches}")
+    if not res["captured"]:
+        fail("[9b] the guarantee run did not run as CUDA graphs")
+    if min(launches["factor_predictor"], launches["resolve"]) <= 0 or \
+            min(min(k) for k in res["k1k2_launches_per_step"]) <= 0:
+        fail(f"[9b] the guarantee run did not launch K1/K2 in every step: {launches}, "
+             f"per step {res['k1k2_launches_per_step']}")
     if res["n_violation_steps_on_success"] != 0:
         fail(f"[9b] {res['n_violation_steps_on_success']} violation steps on successful solves")
     if res["closed_loop_lane_steps_checked"] <= 0:
@@ -1190,10 +1264,12 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
         say(f"[9b] success flags of the first {T} steps that differ from {PUBLISHED_RUN.name}: "
             f"{res['success_flags_differing_from_published']} of {pub.size} (same draws; "
             "the published run is float32 on a TPU)")
-    res["first_round"] = profile_round(entry["solver"], entry["st"], entry["x"])
+    res["first_round"] = profile_round(entry["solver"], entry["st"], entry["x"],
+                                       entry["graphs"])
     fr = res["first_round"]
     say(f"[9b] step {T - 1}'s first SCP round at B={B}: {fr['round_ms']:.1f} ms, device "
-        f"kernels {fr['device_kernel_ms']:.1f} ms, busy share {fr['device_busy_share']:.4f}")
+        f"kernels {fr['device_kernel_ms']:.1f} ms summed, busy {fr['device_busy_ms']:.1f} ms "
+        f"(their union), busy share {fr['device_busy_share']:.4f}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / out).write_text(json.dumps(res, indent=1))
     return res

@@ -13,7 +13,9 @@ driver's order, so lane b here is lane b of a JAX run. Reported:
     predicted nominal +- backoff_x[1] box of the previous step's solve;
   * mean closed-loop cost, failure counts and the failure taxonomy.
 
-The statistics, the artifact's keys and its tag are the JAX driver's. The
+The statistics, the artifact's keys and its tag are the JAX driver's; the
+closed loop's host reads and CUDA graph replays a step go beside it
+(`graph_record`, `<artifact>.graphs.json`). The
 type is float32 on the card and float64 on the CPU, as the JAX driver runs
 float32 on the TPU and float64 on the CPU; `--kkt` applies in both types
 (the JAX driver applies it in float32 only).
@@ -36,7 +38,10 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import os
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -208,6 +213,42 @@ def statistics(logs, stats, m, steps):
     }
 
 
+def graph_record(records, scp_per_dispatch):
+    """What the closed loop's `run.record` says of each chunk (this rank's
+    lanes), written beside the artifact as `<artifact>.graphs.json` (the
+    artifact keeps the JAX driver's keys): whether its loops and pieces ran
+    as CUDA graphs (`captured`), the host reads of a device flag and the
+    graph replays (eagerly: the pieces run) of the seed and of each step
+    (chunk-major lists), each piece's replays summed over the steps, and
+    the port's kernel launches of each step's replays (each graph's
+    launches a replay times its replays; empty when nothing was captured)."""
+    runs = lambda c: sum(v for k, v in c.items() if k != "host_reads")
+
+    def kernels(c, per_replay):
+        out = Counter()
+        for name, n in c.items():
+            for k, v in per_replay.get(name, {}).items():
+                out[k] += n * v
+        return dict(out)
+
+    by_piece = Counter()
+    for r in records:
+        for c in r["steps"]:
+            by_piece.update(c)
+    del by_piece["host_reads"]
+    return {
+        "captured": bool(records[0]["captured"]),
+        "scp_per_dispatch": int(scp_per_dispatch),
+        "seed_host_reads": [r["seed"]["host_reads"] for r in records],
+        "seed_graph_replays": [runs(r["seed"]) for r in records],
+        "host_reads_per_step": [c["host_reads"] for r in records for c in r["steps"]],
+        "graph_replays_per_step": [runs(c) for r in records for c in r["steps"]],
+        "graph_replays_by_piece": dict(sorted(by_piece.items())),
+        "kernel_launches_per_step": [kernels(c, r["launches_per_replay"])
+                                     for r in records for c in r["steps"]],
+    }
+
+
 def tag_of(system, recycle, streaming, warm_qp, converged, soft_fallback, restoration,
            stall_damping, qp_tol, max_iter_scp, adaptive):
     return (
@@ -237,7 +278,10 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
     returns its path, the other ranks return None."""
     from robust_nonlinear_mpc_torch.expe._common import save_results
     from robust_nonlinear_mpc_torch.parallel.mc import MCStats, run_monte_carlo
-    from robust_nonlinear_mpc_torch.sim.closed_loop import build_chunked_converged_loop
+    from robust_nonlinear_mpc_torch.sim.closed_loop import (
+        build_batched_closed_loop,
+        build_chunked_converged_loop,
+    )
     from robust_nonlinear_mpc_torch.utils.device import checked_device
 
     device = checked_device(device)
@@ -260,16 +304,18 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
     Bc = B // chunks
     x0s_h, Ws_h = draws(m, x_center, x_spread, B, steps, seed)
 
-    rollout = None
     if converged and scp_per_dispatch > 0:
         rollout = build_chunked_converged_loop(solver, steps, scp_per_dispatch=scp_per_dispatch)
+    else:
+        rollout = build_batched_closed_loop(solver, steps)
     run = lambda x0s, Ws: run_monte_carlo(solver, steps, x0s, Ws, mesh=mesh, rollout=rollout)
-    logs_np, stats_list = [], []
+    logs_np, stats_list, records = [], [], []
     for c in range(chunks):
         sl = slice(c * Bc, (c + 1) * Bc)
         lc, sc = run(x0s_h[sl], Ws_h[sl])
         logs_np.append({k: v.detach().cpu().numpy() for k, v in lc._asdict().items()})
         stats_list.append(sc)
+        records.append(rollout.record)
     logs = {k: np.concatenate([lg[k] for lg in logs_np], axis=0) for k in logs_np[0]}
     n_ok_total = sum(s.n_scenarios - s.n_failed_lanes for s in stats_list)
     stats = MCStats(
@@ -318,9 +364,15 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
         f"{r['n_failed_inner']} inner-solve failures / "
         f"{r['n_failed_unconverged']} budget-exhausted unconverged)"
     )
+    rec = graph_record(records, scp_per_dispatch)
+    print(f"[mc] {'CUDA graph replays' if rec['captured'] else 'pieces run eagerly'} per step "
+          f"{rec['graph_replays_per_step']}, host reads per step {rec['host_reads_per_step']} "
+          f"(rank 0's lanes; scp_per_dispatch {scp_per_dispatch})")
     tag = tag_of(system, recycle, streaming, warm_qp, converged, soft_fallback, restoration,
                  stall_damping, qp_tol, max_iter_scp, adaptive)
-    return save_results(FOLDER, tag, results)
+    path = save_results(FOLDER, tag, results)
+    Path(path).with_suffix(".graphs.json").write_text(json.dumps(rec, indent=1))
+    return path
 
 
 def main(argv=None):
@@ -353,8 +405,9 @@ def main(argv=None):
                    help="split the batch into this many equal runs and aggregate")
     p.add_argument("--scp-per-dispatch", type=int, default=2, dest="scp_per_dispatch",
                    help="converged mode: > 0 runs build_chunked_converged_loop (the soft "
-                        "fallback in chunks; the value is kept for parity with the JAX "
-                        "driver and changes nothing on one card), 0 build_batched_closed_loop")
+                        "fallback in chunks), reading whether every lane is decided once "
+                        "every this many SCP iterations (host reads, not results, change); "
+                        "0 build_batched_closed_loop (a read after every SCP iteration)")
     p.add_argument("--max-iter-scp", type=int, default=None, dest="max_iter_scp",
                    help="converged-mode SCP budget (default 20 float32 / 80 float64)")
     p.add_argument("--scp-eps", type=float, default=None, dest="scp_eps",

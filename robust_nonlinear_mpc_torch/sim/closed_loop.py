@@ -15,21 +15,29 @@
   lanes whose SQP failed), then T steps of `make_mpc_step`; in RTI mode on
   the card, T replays of the captured step (JAX's `lax.scan` over time).
 * `build_chunked_converged_loop`: the until-convergence closed loop with the
-  soft fallback in `soft_fallback_chunk(N)` chunks; otherwise
-  `build_batched_closed_loop` (the JAX driver's bounded dispatches have no
-  counterpart here, so `scp_per_dispatch` changes nothing); with a scenario
-  mesh each rank runs its block of the lanes and the log is gathered.
+  soft fallback in `soft_fallback_chunk(N)` chunks (padded to the chunk by
+  repeating the last lane, as in JAX), reading whether every lane is
+  decided once every `scp_per_dispatch` SCP iterations (the JAX driver's
+  bounded dispatches); with a scenario mesh each rank runs its block of the
+  lanes and the log is gathered.
 * `run_closed_loop`: the experiment-parity host loop around the stateful
   `SCPSLSSolver`, with the reference npz keys.
 
-The until-convergence loop is a masked batch loop: each SCP iteration runs
-on the lanes still undecided (gathered, then scattered back), so a stopped
-lane keeps its carry and costs nothing. Both converged drivers run the same
-loop (`_scp_until_converged`), so they cannot drift apart.
+The until-convergence loop is the JAX form: every SCP round runs on every
+lane with fixed shapes, a decided lane keeps its state by a select, and no
+piece reads the device from the host. On the card the seed's loops and each
+piece of an SCP round (linearize, fast-SLS's head, inner loop and finish,
+the update, the restoration, the acceptance) and of a step (`_advance`) are
+CUDA graphs (`utils.graph_loop.GraphSet`); the host reads one device flag
+to decide whether to replay a loop body again, whether any lane needs the
+restoration, and, once every `scp_per_dispatch` rounds, whether every lane
+is decided. On the CPU the same pieces run eagerly. Both converged drivers
+run the same loop (`_scp_until_converged`), so they cannot drift apart.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,9 +53,14 @@ from robust_nonlinear_mpc_torch.utils.batch import (
     lane_all_finite,
     lane_max,
     lane_where,
-    tree_leaves,
     tree_map,
     tree_where,
+)
+from robust_nonlinear_mpc_torch.utils.graph_loop import (
+    GraphSet,
+    copy_tree_into,
+    unaliased,
+    warm_up,
 )
 from robust_nonlinear_mpc_torch.utils.host_sync import no_host_sync
 from robust_nonlinear_mpc_torch.utils.stages import stage
@@ -203,37 +216,78 @@ def _conv_state0(solver, X, U, persist) -> _ConvState:
                       qp_iters=zi, scp_iters=zi, done=no, failed=no)
 
 
-def _scp_until_converged(solver, st: _ConvState, x) -> _ConvState:
-    """SCP iterations on the undecided lanes (not converged, not failed,
-    under max_iter_scp) until every lane is decided. Each iteration runs on
-    those lanes only, gathered and scattered back."""
-    opts = solver.opts
-    eps = opts.epsilon_convergence
-    max_scp = int(opts.max_iter_scp)
-    restore = bool(opts.feasibility_restoration)
-    damp = float(opts.scp_stall_damping)
-    damp_after = int(opts.stall_damping_after)
-    while True:
-        run = ~st.done & ~st.failed & (st.scp_iters < max_scp)
-        idx = run.nonzero().flatten()
-        if idx.numel() == 0:
+class _RoundResult(NamedTuple):
+    """What the acceptance of one SCP round reads of `SCPIterResult`."""
+
+    X: torch.Tensor
+    U: torch.Tensor
+    success: torch.Tensor
+    delta_vec: torch.Tensor
+    persist: FastSLSPersist
+    backoff_x: torch.Tensor
+    backoff_u: torch.Tensor
+    qp_iters: torch.Tensor
+    X_rest: torch.Tensor | None
+    U_rest: torch.Tensor | None
+    rest_ok: torch.Tensor | None
+
+
+def _undecided(st: _ConvState, max_scp: int):
+    return ~st.done & ~st.failed & (st.scp_iters < max_scp)
+
+
+def _accept_round(opts, st: _ConvState, res: _RoundResult, run) -> _ConvState:
+    """The tail of one masked SCP round (the JAX `scp_chunk` body): the
+    acceptance with stall damping and restoration, the convergence test; a
+    lane not in `run` keeps its state."""
+    X, U, ok, fail_now = _accept_until_conv(
+        st.X, st.U, res, st.scp_iters, bool(opts.feasibility_restoration),
+        float(opts.scp_stall_damping), int(opts.stall_damping_after))
+    delta = lane_max(res.delta_vec.abs())
+    new = _ConvState(
+        X=X, U=U, persist=tree_where(ok, res.persist, st.persist),
+        bx=lane_where(ok, res.backoff_x, st.bx), bu=lane_where(ok, res.backoff_u, st.bu),
+        qp_iters=st.qp_iters + res.qp_iters, scp_iters=st.scp_iters + 1,
+        done=ok & (delta < opts.epsilon_convergence), failed=fail_now,
+    )
+    return tree_where(run, new, st)
+
+
+def _scp_round(solver, st: _ConvState, x, run, graphs: GraphSet) -> _ConvState:
+    """One masked SCP iteration of every lane, `run` the undecided ones."""
+    res = solver._iteration(st.X, st.U, x, st.persist, active=run, graphs=graphs)
+    res = _RoundResult(X=res.X, U=res.U, success=res.success, delta_vec=res.delta_vec,
+                       persist=res.persist, backoff_x=res.sls.backoff_x,
+                       backoff_u=res.sls.backoff_u, qp_iters=res.sls.qp_iters,
+                       X_rest=res.X_rest, U_rest=res.U_rest, rest_ok=res.rest_ok)
+    return graphs.call("scp.accept", functools.partial(_accept_round, solver.opts),
+                       st, res, run, into=st)
+
+
+def _scp_until_converged(solver, st: _ConvState, x, per_read: int = 1,
+                         graphs: GraphSet | None = None) -> _ConvState:
+    """SCP rounds until every lane is decided (converged, failed, or at
+    max_iter_scp): every round runs every lane, the decided ones frozen
+    (`_scp_round`), and whether every lane is decided is read from the
+    device once every `per_read` rounds (JAX's `scp_per_dispatch`; inside
+    `no_host_sync()` never, so max_iter_scp rounds run). On the card
+    (`graphs` capturing) the state lives in static buffers that the rounds'
+    graphs update."""
+    g = GraphSet() if graphs is None else graphs
+    st, x = g.static("scp.state", st), g.static("scp.x", x)
+    max_scp = int(solver.opts.max_iter_scp)
+    per_read = max(1, int(per_read))
+    for r in range(max_scp):
+        run = _undecided(st, max_scp)
+        if r and r % per_read == 0 and not g.any(run):
             break
-        whole = idx.numel() == run.numel()
-        take = (lambda t: t) if whole else (lambda t: t[idx])
-        sub = tree_map(take, st)
-        res = solver._iteration(sub.X, sub.U, take(x), sub.persist)
-        X, U, ok, fail_now = _accept_until_conv(sub.X, sub.U, res, sub.scp_iters,
-                                                restore, damp, damp_after)
-        delta = lane_max(res.delta_vec.abs())
-        new = _ConvState(
-            X=X, U=U, persist=tree_where(ok, res.persist, sub.persist),
-            bx=lane_where(ok, res.sls.backoff_x, sub.bx),
-            bu=lane_where(ok, res.sls.backoff_u, sub.bu),
-            qp_iters=sub.qp_iters + res.sls.qp_iters, scp_iters=sub.scp_iters + 1,
-            done=ok & (delta < eps), failed=fail_now,
-        )
-        st = new if whole else tree_map(lambda old, nw: old.index_copy(0, idx, nw), st, new)
+        st = _scp_round(solver, st, x, run, g)
     return st
+
+
+def _step_out(st: _ConvState, x):
+    return (x, st.U[:, 0], st.X, st.U, st.bx, st.bu, st.done, st.qp_iters, st.scp_iters,
+            st.failed)
 
 
 def _advance(solver, X, U, persist, x, w_t):
@@ -257,6 +311,12 @@ def _advance(solver, X, U, persist, x, w_t):
     return Xs, Us, persist_next, x_next
 
 
+def _advance_entry(solver, st: _ConvState, x, w_t):
+    """`_advance` from the decided state, and the next step's entry state."""
+    Xs, Us, persist, x_next = _advance(solver, st.X, st.U, st.persist, x, w_t)
+    return _conv_state0(solver, Xs, Us, persist), x_next
+
+
 def make_mpc_step(solver: SCPSLSSolver):
     """(carry, w_t) -> (carry', out) with carry = (X, U, persist, x), all
     batch-leading, and w_t (B, nw). out = (x, u0, X, U, backoff_x,
@@ -276,14 +336,11 @@ def make_mpc_step(solver: SCPSLSSolver):
             bx, bu = res.sls.backoff_x, res.sls.backoff_u
             success, scp_failed = res.success, ~res.success
             scp_it = torch.full_like(qp_total, rti)
-        else:
-            # until convergence; step success = the SCP delta criterion met
-            st = _scp_until_converged(solver, _conv_state0(solver, X, U, persist), x)
-            X, U, persist = st.X, st.U, st.persist
-            bx, bu, qp_total = st.bx, st.bu, st.qp_iters
-            success, scp_it, scp_failed = st.done, st.scp_iters, st.failed
-        out = (x, U[:, 0], X, U, bx, bu, success, qp_total, scp_it, scp_failed)
-        return _advance(solver, X, U, persist, x, w_t), out
+            out = (x, U[:, 0], X, U, bx, bu, success, qp_total, scp_it, scp_failed)
+            return _advance(solver, X, U, persist, x, w_t), out
+        # until convergence; step success = the SCP delta criterion met
+        st = _scp_until_converged(solver, _conv_state0(solver, X, U, persist), x)
+        return _advance(solver, st.X, st.U, st.persist, x, w_t), _step_out(st, x)
 
     return mpc_step
 
@@ -302,13 +359,6 @@ def make_mpc_scan(solver: SCPSLSSolver):
         return carry, tree_map(lambda *o: torch.stack(o), *outs)
 
     return scan
-
-
-def _copy_into(dst, src):
-    if src.shape != dst.shape or src.dtype != dst.dtype:
-        raise ValueError(f"the captured step takes {dst.dtype} {tuple(dst.shape)}, "
-                         f"got {src.dtype} {tuple(src.shape)}")
-    dst.copy_(src)
 
 
 class CapturedMPCStep:
@@ -334,16 +384,8 @@ class CapturedMPCStep:
         self._carry = tree_map(torch.clone, carry)
 
         run_steps = lambda: body(self._carry, self._w[0] if steps == 1 else self._w)
-
-        # warm-up on a side stream, from the static copy (the caller's carry
-        # does not move): builds the kernel library, creates the cuBLAS
-        # handles and sets the kernels' shared-memory attributes
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), no_host_sync():
-            run_steps()
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
+        # from the static copy: the caller's carry does not move
+        warm_up(run_steps, device)
 
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
@@ -351,18 +393,16 @@ class CapturedMPCStep:
             c, out = run_steps()
             # an out that is an input buffer (the plant state x) is copied
             # before the carry goes back into the input buffers
-            inputs = {t.data_ptr() for t in tree_leaves(self._carry) if t.numel()}
-            self._out = tree_map(lambda t: t.clone() if t.data_ptr() in inputs else t, out)
+            self._out = unaliased(out, avoid=self._carry)
             # the new carry goes back into the input buffers, as a scan's
-            tree_map(_copy_into, self._carry, c)
+            copy_tree_into(self._carry, c)
         self.launches = {k: v - before[k] for k, v in launch_counts().items()}
 
     def __call__(self, carry, w):
         if tuple(w.shape) != self._w_shape:
             raise ValueError(f"the captured step takes w of shape {self._w_shape}, "
                              f"got {tuple(w.shape)}")
-        if carry is not self._carry:
-            tree_map(_copy_into, self._carry, carry)
+        copy_tree_into(self._carry, carry)
         self._w.copy_(w.reshape(self._w.shape))
         self.graph.replay()
         return self._carry, self._out
@@ -380,12 +420,14 @@ def capture_mpc_step(solver: SCPSLSSolver, carry, steps: int = 1) -> CapturedMPC
     (carry', out); with steps = K > 1 it takes w (K, B, nw) and returns the
     carry after K steps and the K steps' outs stacked (K first), as a
     `lax.scan` does. Its outputs live in static buffers, which the next
-    replay overwrites. Raises for the until-convergence step (rti <= 0,
-    whose SCP rounds gather lanes on the host) and for a carry off the
-    card; a failed capture or replay raises too."""
+    replay overwrites. Raises for the until-convergence step (rti <= 0: its
+    SCP rounds run as graphs of their own, with host reads between them,
+    in the converged drivers) and for a carry off the card; a failed capture
+    or replay raises too."""
     if int(solver.opts.rti) <= 0:
         raise ValueError("capture_mpc_step captures the RTI step (rti > 0): the until-convergence "
-                         "step gathers the undecided lanes on the host")
+                         "step decides on the host, between its graphs, whether to run another "
+                         "round (build_chunked_converged_loop)")
     if carry[3].device.type != "cuda":
         raise RuntimeError(f"capture_mpc_step captures a CUDA graph: the carry is on "
                            f"{carry[3].device}")
@@ -394,19 +436,22 @@ def capture_mpc_step(solver: SCPSLSSolver, carry, steps: int = 1) -> CapturedMPC
     return CapturedMPCStep(solver, carry, int(steps))
 
 
-def _nominal(solver, x0s):
+def _nominal(solver, x0s, graphs: GraphSet | None = None):
     """Hard SQP seed per lane: (X, U, success)."""
     with stage("seed.sqp"):
         nom = sqp_solve(solver.m, solver.N, solver.Q, solver.R, solver.Qf, x0s,
-                        opts=solver.opts.sqp)
+                        opts=solver.opts.sqp, graphs=graphs, name="seed.sqp.loop")
     return nom.X, nom.U, nom.success
 
 
-def _soft_fallback(solver, x0s, X, U, hard_ok, chunk=None):
+def _soft_fallback(solver, x0s, X, U, hard_ok, chunk=None, graphs: GraphSet | None = None):
     """Re-seed the lanes whose hard SQP failed: the soft-slack SQP, then a
     hard polish from its point (kept where it succeeds), used where the soft
-    solve succeeds. Only those lanes are solved, `chunk` at a time (all at
-    once when None)."""
+    solve succeeds. Only those lanes are solved (gathered on the host, as
+    JAX's chunked driver does), `chunk` at a time (all at once when None);
+    a last chunk that is short is padded to `chunk` by repeating its last
+    lane, as in JAX, so one capture of the solvers' loops serves every
+    chunk."""
     from robust_nonlinear_mpc_torch.solvers.soft_nlp import soft_nlp_solve
 
     m, N = solver.m, solver.N
@@ -417,14 +462,21 @@ def _soft_fallback(solver, x0s, X, U, hard_ok, chunk=None):
     step = idx.numel() if chunk is None else int(chunk)
     for c0 in range(0, idx.numel(), step):
         ii = idx[c0 : c0 + step]
+        n = ii.numel()
+        ii_p = torch.cat([ii, ii[-1:].expand(step - n)]) if n < step else ii
         with stage("seed.soft_nlp"):
-            soft = soft_nlp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[ii],
-                                  rho_soft=1e6, rho_soft_l1=1e6)
+            soft = soft_nlp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[ii_p],
+                                  rho_soft=1e6, rho_soft_l1=1e6, graphs=graphs,
+                                  name="seed.soft_nlp.loop")
         with stage("seed.polish"):
-            hard = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[ii],
-                             X_init=soft.X, U_init=soft.U, opts=solver.opts.sqp)
-        X[ii] = lane_where(soft.success, lane_where(hard.success, hard.X, soft.X), X[ii])
-        U[ii] = lane_where(soft.success, lane_where(hard.success, hard.U, soft.U), U[ii])
+            hard = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[ii_p],
+                             X_init=soft.X, U_init=soft.U, opts=solver.opts.sqp,
+                             graphs=graphs, name="seed.polish.loop")
+        fb_X = lane_where(hard.success, hard.X, soft.X)[:n]
+        fb_U = lane_where(hard.success, hard.U, soft.U)[:n]
+        use = soft.success[:n]
+        X[ii] = lane_where(use, fb_X, X[ii])
+        U[ii] = lane_where(use, fb_U, U[ii])
     return X, U
 
 
@@ -454,56 +506,96 @@ def _persist0(solver, B):
     )
 
 
-def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None):
+def _converged_steps(solver, carry, Ws, per_read, graphs: GraphSet, record):
+    """The until-convergence steps from the seed's carry: per step the SCP
+    rounds (`_scp_until_converged`), the step's out, and `_advance` with the
+    next step's entry state ("advance"), each piece run by `graphs`.
+    Appends each step's host reads and piece runs to `record`."""
+    X, U, persist, x = carry
+    st = graphs.static("scp.state", _conv_state0(solver, X, U, persist))
+    x = graphs.static("scp.x", x)
+    advance = functools.partial(_advance_entry, solver)
+    outs = []
+    for t in range(Ws.shape[1]):
+        before = graphs.counts.copy()
+        with stage("step"):
+            st = _scp_until_converged(solver, st, x, per_read, graphs)
+            # the static buffers are the next step's
+            outs.append(tree_map(torch.clone, _step_out(st, x)))
+            st, x = graphs.call("advance", advance, st, x, Ws[:, t], into=(st, x))
+        record.append(graphs.counts - before)
+    return outs
+
+
+def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None, per_read=1,
+                 capture=None):
     """run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog: the SQP seed ("seed"
     stage; the soft fallback, `fallback_chunk` lanes at a time, with
     `nominal_soft_fallback`), then `sim_steps` MPC steps ("step" stages): in
     RTI mode on the card, replays of the step captured from the seed's
-    carry (`capture_mpc_step`), else `make_mpc_step`."""
+    carry (`capture_mpc_step`), else `make_mpc_step`'s; until convergence,
+    `_converged_steps`, reading whether every lane is decided once every
+    `per_read` SCP rounds. On the card (unless `capture` is False) the seed's
+    loops and the converged step's pieces are CUDA graphs of one
+    `GraphSet` a run. After a run, `run.record` holds whether it captured,
+    the seed's and each step's host reads and piece runs (Counters), and
+    each captured piece's kernel launches a replay."""
 
     def run(x0s, Ws):
         x0s, Ws = _as_inputs(solver, x0s, Ws)
+        graphs = GraphSet(x0s.device, capture)
+        record = {"captured": graphs.capture, "steps": []}
         with stage("seed"):
-            X, U, ok = _nominal(solver, x0s)
+            X, U, ok = _nominal(solver, x0s, graphs)
             if solver.opts.nominal_soft_fallback:
-                X, U = _soft_fallback(solver, x0s, X, U, ok, chunk=fallback_chunk)
+                X, U = _soft_fallback(solver, x0s, X, U, ok, chunk=fallback_chunk, graphs=graphs)
+        record["seed"] = graphs.counts.copy()
         carry = (X, U, _persist0(solver, x0s.shape[0]), x0s)
-        captured = int(solver.opts.rti) > 0 and x0s.device.type == "cuda"
-        step = capture_mpc_step(solver, carry) if captured else make_mpc_step(solver)
-        outs = []
-        for t in range(sim_steps):
-            with stage("step"):
-                carry, out = step(carry, Ws[:, t])
-            # a replay overwrites the last one's outputs
-            outs.append(tree_map(torch.clone, out) if captured else out)
+        if int(solver.opts.rti) <= 0:
+            outs = _converged_steps(solver, carry, Ws, per_read, graphs, record["steps"])
+        else:
+            captured = graphs.capture
+            step = capture_mpc_step(solver, carry) if captured else make_mpc_step(solver)
+            outs = []
+            for t in range(sim_steps):
+                with stage("step"):
+                    carry, out = step(carry, Ws[:, t])
+                # a replay overwrites the last one's outputs
+                outs.append(tree_map(torch.clone, out) if captured else out)
+        record["launches_per_replay"] = {k: dict(v) for k, v in graphs.launches.items()}
+        run.record = record
         return _stack_log(outs, sim_steps)
 
     return run
 
 
-def build_batched_closed_loop(solver: SCPSLSSolver, sim_steps: int):
+def build_batched_closed_loop(solver: SCPSLSSolver, sim_steps: int, capture=None):
     """run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog (batch-leading): the
     SQP seed of every lane (with `nominal_soft_fallback`, the soft-slack
     fallback on the lanes whose SQP failed), then `sim_steps` MPC steps
-    under the disturbances Ws in [-1, 1] (scaled by E)."""
-    return _closed_loop(solver, sim_steps)
+    under the disturbances Ws in [-1, 1] (scaled by E); until convergence,
+    one read of whether every lane is decided after every SCP round. On
+    the card its loops and pieces run as CUDA graphs (`capture=False`:
+    eagerly)."""
+    return _closed_loop(solver, sim_steps, capture=capture)
 
 
 def build_chunked_converged_loop(solver: SCPSLSSolver, sim_steps: int,
-                                 scp_per_dispatch: int = 2, mesh=None):
+                                 scp_per_dispatch: int = 2, mesh=None, capture=None):
     """The until-convergence closed loop whose soft fallback (with
     `nominal_soft_fallback`) solves the lanes whose hard SQP failed
-    `soft_fallback_chunk(N)` lanes at a time; otherwise
-    `build_batched_closed_loop`, so the results are equal. The JAX driver
-    advances the undecided lanes `scp_per_dispatch` SCP iterations per
-    device dispatch; here every SCP iteration already returns to the host
-    and runs only the undecided lanes, so `scp_per_dispatch` is accepted for
-    parity and changes nothing.
+    `soft_fallback_chunk(N)` lanes at a time, and which reads whether every
+    lane is decided once every `scp_per_dispatch` SCP rounds: the JAX
+    driver's bounded dispatches, after which it reads `decided`. Every
+    round is masked, so `scp_per_dispatch` changes the host reads and no
+    lane's result. On the card its loops and pieces run as CUDA graphs
+    (`capture=False`: eagerly).
 
-    Returns run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog. With a scenario
-    `mesh` (`parallel.mesh.Mesh`) every rank calls run with the same global
-    inputs (B divisible by the mesh size), runs the undecided-lane loop on
-    its own block and returns the log gathered into the global layout."""
+    Returns run(x0s (B, nx), Ws (B, T, nw)) -> ClosedLoopLog, with
+    `run.record` (see `_closed_loop`) after a run. With a scenario `mesh`
+    (`parallel.mesh.Mesh`) every rank calls run with the same global inputs
+    (B divisible by the mesh size), runs the loop on its own block and
+    returns the log gathered into the global layout."""
     from robust_nonlinear_mpc_torch.parallel.mesh import Mesh, sharded
     from robust_nonlinear_mpc_torch.solvers.soft_nlp import soft_fallback_chunk
 
@@ -511,5 +603,8 @@ def build_chunked_converged_loop(solver: SCPSLSSolver, sim_steps: int,
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
     if int(solver.opts.rti) > 0:
         raise ValueError("the chunked driver is for the until-convergence mode (rti <= 0)")
-    run = _closed_loop(solver, sim_steps, fallback_chunk=soft_fallback_chunk(solver.N))
+    if int(scp_per_dispatch) < 1:
+        raise ValueError(f"scp_per_dispatch must be >= 1, got {scp_per_dispatch}")
+    run = _closed_loop(solver, sim_steps, fallback_chunk=soft_fallback_chunk(solver.N),
+                       per_read=int(scp_per_dispatch), capture=capture)
     return run if mesh is None else sharded(mesh, run)

@@ -6,7 +6,10 @@ Two branches, as in the JAX package, all state batch-leading:
   QP duals, the backward Riccati, the response, the retightened QP; RTI mode
   runs `rti_steps` iterations and a final QP, the until-convergence mode
   iterates to the primal criterion (at most `max_iter`) as a masked batch
-  loop in which a lane that has stopped keeps its state;
+  loop in which a lane that has stopped keeps its state: a head (the entry
+  QP and the first iteration), a body (one masked iteration, its QP at the
+  IPM's cap inside a CUDA graph) and a finish, run by a
+  `utils.graph_loop.GraphSet` (eagerly, or as CUDA graphs on the card);
 * the dual-recycling RTI (`recycle_eta=True`): one tightened QP per solve,
   the backward Riccati on the eta kept from the previous solve's QP duals,
   the QP warm-started from the previous solution (`recycle_warm_qp`).
@@ -50,7 +53,7 @@ from robust_nonlinear_mpc_torch.ops.sls_kernels import (
     tube_cost,
 )
 from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, lane_where, tree_where
-from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
+from robust_nonlinear_mpc_torch.utils.graph_loop import GraphSet
 from robust_nonlinear_mpc_torch.utils.numerics import tube_precision
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
@@ -252,6 +255,8 @@ class _Carry(NamedTuple):
     iteration_number: torch.Tensor
     qp_iters: torch.Tensor
     qp_kkt: torch.Tensor
+    delta: torch.Tensor       # (B,) the last iteration's primal change
+    active: torch.Tensor      # (B,) bool: False, the lane entered stopped
 
 
 def _backoff_xu(nboff, nboff_f, nx, nu):
@@ -259,7 +264,7 @@ def _backoff_xu(nboff, nboff_f, nx, nu):
             nboff[:, :, nx : nx + nu])
 
 
-def _print_rows(carry: _Carry, delta_primal, lanes):
+def _print_rows(carry: _Carry, lanes):
     """The per-iteration table of the reference fast-SLS (one row per lane
     that stepped), printed from the host."""
     lanes = lanes.nonzero().flatten().tolist()
@@ -267,62 +272,54 @@ def _print_rows(carry: _Carry, delta_primal, lanes):
     if any(it[b] <= 1 for b in lanes):
         print("\t{:>4} {:>10} {:>11} {:>11} {:>11} {:>6}".format(
             "it", "Δ primal", "cost nom.", "cost tube", "cost total", "qp it"))
-    cn, ct, dp = carry.sol.cost.tolist(), carry.cost_tube.tolist(), delta_primal.tolist()
+    cn, ct, dp = carry.sol.cost.tolist(), carry.cost_tube.tolist(), carry.delta.tolist()
     qi = carry.qp_iters.tolist()
     for b in lanes:
         print(f"\t{it[b]:>4} {dp[b]:>10.2e} {cn[b]:>11.4e} {ct[b]:>11.4e} "
               f"{cn[b] + ct[b]:>11.4e} {qi[b]:>6}")
 
 
-def fast_sls_solve(
-    prob: SLSProblem,
-    A, B, c, qx, qu, g_res, gf_res, xinit_dev,
-    persist: FastSLSPersist,
-    opts: FastSLSOptions,
-) -> FastSLSSolution:
-    """One fast-SLS solve for a batch of deviation problems:
-    A (B, N, nx, nx), B (B, N, nx, nu), c (B, N, nx), qx (B, N+1, nx),
-    qu (B, N, nu), g_res (B, N, ni), gf_res (B, ni_f), xinit_dev (B, nx).
-    `opts.recycle_eta` selects the one-QP dual-recycling branch, else the
-    two-QP iteration runs (RTI when `opts.rti_steps` > 0)."""
-    if opts.column_mesh is not None:
-        from robust_nonlinear_mpc_torch.parallel.columns import column_sharded_backward_solve
+class _Solve:
+    """The pieces of one fast-SLS solve over its inputs: the deviation
+    problem `dev` = (A, B, c, qx, qu, g_res, gf_res, xinit_dev), the state
+    persisted from the last solve and the condensed-KKT precompute `pre`
+    (built from (A, B) when None, for kkt="condensed"; one for every QP of
+    the solve)."""
 
-        gains = functools.partial(column_sharded_backward_solve, opts.column_mesh)
-    else:
-        solve = select_sls_kernels(opts.sls_block)[0]
-        gains = lambda *a: solve(*a)[1]
-    Bsz, N, nx = c.shape
-    nu = B.shape[3]
-    ni, ni_f = prob.stat.Gx.shape[0], prob.stat.Gf.shape[0]
-    dtype, device = A.dtype, A.device
-    eps = opts.epsilon_backoff
-    Gmat = torch.cat([prob.stat.Gx, prob.stat.Gu], dim=1)
+    def __init__(self, prob: SLSProblem, opts: FastSLSOptions, dev, persist: FastSLSPersist,
+                 pre=None):
+        self.prob, self.opts, self.dev, self.persist = prob, opts, dev, persist
+        A, B = dev[0], dev[1]
+        if opts.column_mesh is not None:
+            from robust_nonlinear_mpc_torch.parallel.columns import column_sharded_backward_solve
 
-    steady_cap = None
-    budget = budget_bound = None
-    if opts.adaptive_ipm_budget is not None:
-        steady_cap, cold_cap = opts.adaptive_ipm_budget
-        budget = torch.where(persist.qp_steady, steady_cap, cold_cap).to(torch.int32)
-        budget_bound = max(int(steady_cap), int(cold_cap))
-    # the condensed-KKT precompute depends only on (A, B): one for every QP
-    # of this solve
-    pre = None
-    if "condensed" in (opts.ipm.kkt, getattr(opts.ipm_first, "kkt", None)):
-        pre = condense(prob.stat.per_stage(N), A, B)
+            self.gains = functools.partial(column_sharded_backward_solve, opts.column_mesh)
+        else:
+            solve = select_sls_kernels(opts.sls_block)[0]
+            self.gains = lambda *a: solve(*a)[1]
+        self.Gmat = torch.cat([prob.stat.Gx, prob.stat.Gu], dim=1)
+        self.steady_cap = self.budget = self.budget_bound = None
+        if opts.adaptive_ipm_budget is not None:
+            self.steady_cap, cold_cap = opts.adaptive_ipm_budget
+            self.budget = torch.where(persist.qp_steady, self.steady_cap, cold_cap).to(torch.int32)
+            self.budget_bound = max(int(self.steady_cap), int(cold_cap))
+        if pre is None and "condensed" in (opts.ipm.kkt, getattr(opts.ipm_first, "kkt", None)):
+            pre = condense(prob.stat.per_stage(A.shape[1]), A, B)
+        self.pre = pre
 
-    def forward(applied, applied_f, init=None, first=False):
+    def forward(self, applied, applied_f, init=None, first=False):
+        A, B, c, qx, qu, g_res, gf_res, xinit_dev = self.dev
+        opts = self.opts
         data = QPData(A=A, B=B, c=c, qx=qx, qu=qu, h=g_res - applied,
                       hf=gf_res - applied_f, xinit=xinit_dev)
-        use_first = first and opts.ipm_first is not None
         with stage("sls.qp"):
-            if use_first:
-                return solve_qp(prob.stat, data, opts.ipm_first, init=init, pre=pre)
-            return solve_qp(prob.stat, data, opts.ipm, init=init, max_iter_dyn=budget,
-                            max_iter_bound=budget_bound, pre=pre)
+            if first and opts.ipm_first is not None:
+                return solve_qp(self.prob.stat, data, opts.ipm_first, init=init, pre=self.pre)
+            return solve_qp(self.prob.stat, data, opts.ipm, init=init, max_iter_dyn=self.budget,
+                            max_iter_bound=self.budget_bound, pre=self.pre)
 
-    def warm_init():
-        w = persist.qp_warm
+    def warm_init(self):
+        w = self.persist.qp_warm
         v = w.valid
         fill = lambda t, val: lane_where(v, t, torch.full_like(t, val))
         return QPSolution(
@@ -332,8 +329,8 @@ def fast_sls_solve(
             iters=None, success=v,
         )
 
-    def update_warm(sol):
-        w = persist.qp_warm
+    def update_warm(self, sol):
+        w = self.persist.qp_warm
         keep = sol.success
         pick = lambda new, old: lane_where(keep, new, old)
         return QPWarm(
@@ -343,18 +340,27 @@ def fast_sls_solve(
             valid=keep | w.valid,
         )
 
-    def next_steady(sol):
-        return persist.qp_steady if steady_cap is None else sol.success & (sol.iters < steady_cap)
+    def next_steady(self, sol):
+        if self.steady_cap is None:
+            return self.persist.qp_steady
+        return sol.success & (sol.iters < self.steady_cap)
 
-    if opts.recycle_eta:
-        # dual-recycling RTI: K from the persisted eta, one tightened QP
+    def tube(self, eta, eta_f, phi_like_x, phi_like_u):
+        """K from eta by the backward Riccati, then the response."""
+        A, B = self.dev[0], self.dev[1]
         with stage("sls.backward"), tube_precision():
-            K_r = gains(A, B, Gmat, prob.stat.Gf, persist.eta, persist.eta_f, prob.regs)
+            K = self.gains(A, B, self.Gmat, self.prob.stat.Gf, eta, eta_f, self.prob.regs)
         with stage("sls.response"), tube_precision():
-            Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
-                prob, A, B, K_r, opts, persist.Phi_x, persist.Phi_u
-            )
-        sol = forward(nboff, nboff_f, init=warm_init() if opts.recycle_warm_qp else None)
+            return K, compute_response(self.prob, A, B, K, self.opts, phi_like_x, phi_like_u)
+
+    def recycled(self) -> FastSLSSolution:
+        """The dual-recycling RTI: K from the persisted eta, one tightened QP."""
+        persist, opts = self.persist, self.opts
+        nx, nu = self.dev[0].shape[2], self.dev[1].shape[3]
+        eps = opts.epsilon_backoff
+        K_r, (Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct) = self.tube(
+            persist.eta, persist.eta_f, persist.Phi_x, persist.Phi_u)
+        sol = self.forward(nboff, nboff_f, init=self.warm_init() if opts.recycle_warm_qp else None)
         y = pack_primal(sol.X, sol.U)
         conv = persist.have_prev & (lane_max_abs(y - persist.prev_primal) <= opts.conv_tol)
         eta_n, eta_f_n = evaluate_dual_eta(sol.lam, sol.lam_f, nbeta, nbeta_f, eps)
@@ -365,7 +371,7 @@ def fast_sls_solve(
             prev_primal=y, have_prev=torch.ones_like(persist.have_prev),
             eta=eta_n, eta_f=eta_f_n, K=K_r,
             Phi_x=Phi_x, Phi_u=Phi_u, cost_tube=ct,
-            qp_warm=update_warm(sol), qp_steady=next_steady(sol),
+            qp_warm=self.update_warm(sol), qp_steady=self.next_steady(sol),
         )
         backoff_x, backoff_u = _backoff_xu(nboff, nboff_f, nx, nu)
         return FastSLSSolution(
@@ -379,37 +385,14 @@ def fast_sls_solve(
             qp_iters=sol.iters, qp_kkt=sol.kkt_res,
         )
 
-    # two-QP iteration: the untightened entry QP, then eta -> backward ->
-    # response -> retighten -> QP, per lane, until the RTI count or convergence
-    zeros = lambda *s: torch.zeros((Bsz,) + s, dtype=dtype, device=device)
-    flag = lambda v: torch.full((Bsz,), v, dtype=torch.bool, device=device)
-    # the tube at solve entry (reference initialize_backoff): beta = eps,
-    # and the backoff sums sqrt(eps) over all N columns
-    beta0 = torch.full((Bsz, N, N, ni), eps, dtype=dtype, device=device)
-    beta_f0 = torch.full((Bsz, N + 1, ni_f), eps, dtype=dtype, device=device)
-    entry = forward(zeros(N, ni), zeros(ni_f), first=True)
-    carry = _Carry(
-        sol=entry, eta=persist.eta, eta_f=persist.eta_f, K=persist.K,
-        Phi_x=persist.Phi_x, Phi_u=persist.Phi_u, beta=beta0, beta_f=beta_f0,
-        backoff=torch.sqrt(beta0).sum(dim=2), backoff_f=torch.sqrt(beta_f0).sum(dim=1),
-        backoff_x=zeros(N + 1, nx), backoff_u=zeros(N, nu),
-        applied=zeros(N, ni), applied_f=zeros(ni_f), cost_tube=persist.cost_tube,
-        prev_primal=persist.prev_primal, have_prev=persist.have_prev,
-        converged=flag(False), infeasible=~entry.success,
-        iteration_number=torch.zeros((Bsz,), dtype=torch.int32, device=device),
-        qp_iters=entry.iters, qp_kkt=entry.kkt_res,
-    )
-
-    def sls_update(carry: _Carry) -> _Carry:
+    def sls_update(self, carry: _Carry) -> _Carry:
         """eta -> backward Riccati -> response -> retighten."""
         sol = carry.sol
+        eps = self.opts.epsilon_backoff
+        nx, nu = self.dev[0].shape[2], self.dev[1].shape[3]
         eta, eta_f = evaluate_dual_eta(sol.lam, sol.lam_f, carry.beta, carry.beta_f, eps)
-        with stage("sls.backward"), tube_precision():
-            K = gains(A, B, Gmat, prob.stat.Gf, eta, eta_f, prob.regs)
-        with stage("sls.response"), tube_precision():
-            Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct = compute_response(
-                prob, A, B, K, opts, carry.Phi_x, carry.Phi_u
-            )
+        K, (Phi_x, Phi_u, nbeta, nbeta_f, nboff, nboff_f, ct) = self.tube(
+            eta, eta_f, carry.Phi_x, carry.Phi_u)
         backoff_x, backoff_u = _backoff_xu(nboff, nboff_f, nx, nu)
         return carry._replace(
             eta=eta, eta_f=eta_f, K=K, Phi_x=Phi_x, Phi_u=Phi_u,
@@ -419,37 +402,152 @@ def fast_sls_solve(
             iteration_number=carry.iteration_number + 1,
         )
 
-    def step(carry: _Carry, resolve_forward: bool):
+    def step(self, carry: _Carry, resolve_forward: bool) -> _Carry:
         """One iteration (the reference `_step`): a fresh QP on the current
         tightened bounds unless it is the first, the convergence check, and
-        the tube update on the lanes neither converged nor infeasible.
-        Returns the new carry and the primal change."""
+        the tube update on the lanes neither converged nor infeasible."""
         if resolve_forward:
-            sol = forward(carry.applied, carry.applied_f,
-                          init=carry.sol if opts.warm_start_qp else None)
+            sol = self.forward(carry.applied, carry.applied_f,
+                               init=carry.sol if self.opts.warm_start_qp else None)
             carry = carry._replace(
                 sol=sol, infeasible=carry.infeasible | ~sol.success,
                 qp_iters=carry.qp_iters + sol.iters,
                 qp_kkt=torch.maximum(carry.qp_kkt, sol.kkt_res),
             )
         y = pack_primal(carry.sol.X, carry.sol.U)
-        delta_primal = lane_max_abs(y - carry.prev_primal)
-        conv = carry.have_prev & (delta_primal <= opts.conv_tol)
-        carry = carry._replace(prev_primal=y, have_prev=torch.ones_like(carry.have_prev))
-        carry = tree_where(~(conv | carry.infeasible), sls_update(carry), carry)
-        return carry._replace(converged=carry.converged | conv), delta_primal
+        delta = lane_max_abs(y - carry.prev_primal)
+        conv = carry.have_prev & (delta <= self.opts.conv_tol)
+        carry = carry._replace(prev_primal=y, have_prev=torch.ones_like(carry.have_prev),
+                               delta=delta)
+        carry = tree_where(~(conv | carry.infeasible), self.sls_update(carry), carry)
+        return carry._replace(converged=carry.converged | conv)
 
-    carry, delta = step(carry, resolve_forward=False)
-    if opts.verbose:
-        _print_rows(carry, delta, flag(True))
+    def head(self, active=None) -> _Carry:
+        """The untightened entry QP and the first iteration. `active` (B,)
+        bool: the lanes that take part; the others enter stopped and keep
+        what this step gives them."""
+        persist, eps = self.persist, self.opts.epsilon_backoff
+        A, c, g_res, gf_res = self.dev[0], self.dev[2], self.dev[5], self.dev[6]
+        Bsz, N, nx = c.shape
+        nu = self.dev[1].shape[3]
+        ni, ni_f = g_res.shape[2], gf_res.shape[1]
+        dtype, device = A.dtype, A.device
+        zeros = lambda *s: torch.zeros((Bsz,) + s, dtype=dtype, device=device)
+        flag = lambda v: torch.full((Bsz,), v, dtype=torch.bool, device=device)
+        # the tube at solve entry (reference initialize_backoff): beta = eps,
+        # and the backoff sums sqrt(eps) over all N columns
+        beta0 = torch.full((Bsz, N, N, ni), eps, dtype=dtype, device=device)
+        beta_f0 = torch.full((Bsz, N + 1, ni_f), eps, dtype=dtype, device=device)
+        entry = self.forward(zeros(N, ni), zeros(ni_f), first=True)
+        carry = _Carry(
+            sol=entry, eta=persist.eta, eta_f=persist.eta_f, K=persist.K,
+            Phi_x=persist.Phi_x, Phi_u=persist.Phi_u, beta=beta0, beta_f=beta_f0,
+            backoff=torch.sqrt(beta0).sum(dim=2), backoff_f=torch.sqrt(beta_f0).sum(dim=1),
+            backoff_x=zeros(N + 1, nx), backoff_u=zeros(N, nu),
+            applied=zeros(N, ni), applied_f=zeros(ni_f), cost_tube=persist.cost_tube,
+            prev_primal=persist.prev_primal, have_prev=persist.have_prev,
+            converged=flag(False), infeasible=~entry.success,
+            iteration_number=torch.zeros((Bsz,), dtype=torch.int32, device=device),
+            qp_iters=entry.iters, qp_kkt=entry.kkt_res, delta=zeros(),
+            active=flag(True) if active is None else active,
+        )
+        return self.step(carry, resolve_forward=False)
+
+    def body(self, carry: _Carry) -> _Carry:
+        """One masked iteration of the until-convergence loop: a lane that
+        has stopped (converged, infeasible, or entered stopped) keeps its
+        carry."""
+        return tree_where(_running(carry), self.step(carry, resolve_forward=True), carry)
+
+    def finish(self, carry: _Carry, success) -> FastSLSSolution:
+        sol = carry.sol
+        new_persist = FastSLSPersist(
+            prev_primal=carry.prev_primal, have_prev=carry.have_prev,
+            eta=carry.eta, eta_f=carry.eta_f, K=carry.K,
+            Phi_x=carry.Phi_x, Phi_u=carry.Phi_u, cost_tube=carry.cost_tube,
+            qp_warm=self.update_warm(sol), qp_steady=self.next_steady(sol),
+        )
+        return FastSLSSolution(
+            X=sol.X, U=sol.U, y=pack_primal(sol.X, sol.U), lam=sol.lam, lam_f=sol.lam_f,
+            eta=carry.eta, eta_f=carry.eta_f, K=carry.K, Phi_x=carry.Phi_x, Phi_u=carry.Phi_u,
+            beta=carry.beta, beta_f=carry.beta_f, backoff=carry.backoff,
+            backoff_f=carry.backoff_f, backoff_x=carry.backoff_x, backoff_u=carry.backoff_u,
+            cost_nominal=sol.cost, cost_tube=carry.cost_tube,
+            iteration_number=carry.iteration_number, success=success,
+            persist=new_persist, qp_iters=carry.qp_iters, qp_kkt=carry.qp_kkt,
+        )
+
+
+def _running(carry: _Carry, *_):
+    return carry.active & ~carry.converged & ~carry.infeasible
+
+
+# the until-convergence solve's pieces, each a function of its tensors only
+# (a CUDA graph each on the card, `utils.graph_loop.GraphSet`)
+def _any_running(carry, *_):
+    return _running(carry).any()
+
+
+def _head(prob, opts, dev, persist, active):
+    s = _Solve(prob, opts, dev, persist)
+    return s.head(active), s.pre
+
+
+def _body(prob, opts, carry, dev, persist, pre):
+    return _Solve(prob, opts, dev, persist, pre).body(carry)
+
+
+def _printed(body):
+    """`body` followed by the table row of every lane that stepped."""
+    def run(carry, *args):
+        out = body(carry, *args)
+        _print_rows(out, _running(carry))
+        return out
+
+    return run
+
+
+def _finish(prob, opts, carry, dev, persist, pre):
+    s = _Solve(prob, opts, dev, persist, pre)
+    return s.finish(carry, carry.converged & ~carry.infeasible)
+
+
+def fast_sls_solve(
+    prob: SLSProblem,
+    A, B, c, qx, qu, g_res, gf_res, xinit_dev,
+    persist: FastSLSPersist,
+    opts: FastSLSOptions,
+    active=None,
+    graphs: GraphSet | None = None,
+) -> FastSLSSolution:
+    """One fast-SLS solve for a batch of deviation problems:
+    A (B, N, nx, nx), B (B, N, nx, nu), c (B, N, nx), qx (B, N+1, nx),
+    qu (B, N, nu), g_res (B, N, ni), gf_res (B, ni_f), xinit_dev (B, nx).
+    `opts.recycle_eta` selects the one-QP dual-recycling branch, else the
+    two-QP iteration runs (RTI when `opts.rti_steps` > 0).
+
+    Until convergence (rti_steps = 0) the solve is a head (the entry QP and
+    the first iteration), a masked inner loop of at most max_iter - 1
+    iterations while any lane runs (the JAX `while_loop` under `vmap`), and
+    a finish, run by `graphs` (`utils.graph_loop.GraphSet`: eagerly, or each
+    piece a CUDA graph on the card). `active` (B,) bool: the lanes that
+    take part; the others enter the loop stopped (their result is
+    meaningless), so a decided lane cannot keep the loop running."""
+    dev = (A, B, c, qx, qu, g_res, gf_res, xinit_dev)
+    if opts.recycle_eta:
+        return _Solve(prob, opts, dev, persist).recycled()
     if opts.rti_steps:
         # RTI: exactly max(rti_steps, 1) iterations, then the final QP
+        s = _Solve(prob, opts, dev, persist)
+        carry = s.head(active)
+        if opts.verbose:
+            _print_rows(carry, carry.active)
         for _ in range(1, max(int(opts.rti_steps), 1)):
-            carry, delta = step(carry, resolve_forward=True)
+            carry = s.step(carry, resolve_forward=True)
             if opts.verbose:
-                _print_rows(carry, delta, flag(True))
-        final = forward(carry.applied, carry.applied_f,
-                        init=carry.sol if opts.warm_start_qp else None)
+                _print_rows(carry, carry.active)
+        final = s.forward(carry.applied, carry.applied_f,
+                          init=carry.sol if opts.warm_start_qp else None)
         # keep the last feasible solution where the loop already failed
         use_final = ~carry.infeasible
         carry = carry._replace(
@@ -459,37 +557,16 @@ def fast_sls_solve(
             qp_kkt=torch.maximum(carry.qp_kkt,
                                  torch.where(use_final, final.kkt_res, 0.0)),
         )
-        success = ~carry.infeasible
-    else:
-        # until convergence, at most opts.max_iter iterations: a masked batch
-        # loop (the JAX while_loop under vmap); a lane that has stopped keeps
-        # its carry until every lane stops (inside no_host_sync(), until
-        # opts.max_iter)
-        it = 1
-        while it < opts.max_iter:
-            running = ~carry.converged & ~carry.infeasible
-            if host_sync_allowed() and not bool(running.any()):
-                break
-            stepped, delta = step(carry, resolve_forward=True)
-            carry = tree_where(running, stepped, carry)
-            if opts.verbose:
-                _print_rows(carry, delta, running)
-            it += 1
-        success = carry.converged & ~carry.infeasible
+        return s.finish(carry, ~carry.infeasible)
 
-    sol = carry.sol
-    new_persist = FastSLSPersist(
-        prev_primal=carry.prev_primal, have_prev=carry.have_prev,
-        eta=carry.eta, eta_f=carry.eta_f, K=carry.K,
-        Phi_x=carry.Phi_x, Phi_u=carry.Phi_u, cost_tube=carry.cost_tube,
-        qp_warm=update_warm(sol), qp_steady=next_steady(sol),
-    )
-    return FastSLSSolution(
-        X=sol.X, U=sol.U, y=pack_primal(sol.X, sol.U), lam=sol.lam, lam_f=sol.lam_f,
-        eta=carry.eta, eta_f=carry.eta_f, K=carry.K, Phi_x=carry.Phi_x, Phi_u=carry.Phi_u,
-        beta=carry.beta, beta_f=carry.beta_f, backoff=carry.backoff, backoff_f=carry.backoff_f,
-        backoff_x=carry.backoff_x, backoff_u=carry.backoff_u,
-        cost_nominal=sol.cost, cost_tube=carry.cost_tube,
-        iteration_number=carry.iteration_number, success=success,
-        persist=new_persist, qp_iters=carry.qp_iters, qp_kkt=carry.qp_kkt,
-    )
+    # until convergence; the verbose table is printed from the host, so it
+    # runs eagerly
+    g = GraphSet() if graphs is None or opts.verbose else graphs
+    carry, pre = g.call("sls.head", functools.partial(_head, prob, opts), dev, persist, active)
+    body = functools.partial(_body, prob, opts)
+    if opts.verbose:
+        _print_rows(carry, carry.active)
+        body = _printed(body)
+    carry = g.loop("sls.inner", _any_running, body, carry, dev, persist, pre,
+                   cap=max(int(opts.max_iter) - 1, 0))
+    return g.call("sls.finish", functools.partial(_finish, prob, opts), carry, dev, persist, pre)

@@ -107,12 +107,12 @@ def restoration_solve(
     h_aug = z(N + 1, 2 * ni)
     h_aug[:, :N, :ni] = h
     h_aug[:, N, :ni_f] = hf
-    h_aug[:, N, ni_f:ni] = 1.0
+    h_aug[:, N, ni_f:ni].fill_(1.0)
     qx_aug = torch.cat([qx, z(1, nx)], dim=1)
     # the L1 exact-penalty term on all slacks: rho1 gamma = (rho1 / sg) gamma~
     qu_aug = z(N + 1, nua)
     qu_aug[:, :N, :nu] = qu
-    qu_aug[:, :, nu:] = rho1 / sg
+    qu_aug[:, :, nu:].fill_(rho1 / sg)
 
     data = QPData(A=A_aug, B=B_aug, c=c_aug, qx=qx_aug, qu=qu_aug, h=h_aug,
                   hf=torch.ones((Bsz, 1), dtype=dtype, device=device), xinit=xinit)

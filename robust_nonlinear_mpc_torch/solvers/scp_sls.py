@@ -7,7 +7,8 @@ maps E) are registered buffers, so `.to(device)` moves the whole problem.
 `_iteration` is one SCP iteration for a batch of lanes: linearize, assemble
 the deviation problem, run fast-SLS, update the nominal, and (with
 `feasibility_restoration`) the soft-slacked restoration iterate of every lane
-whose fast-SLS solve failed.
+whose fast-SLS solve failed; its pieces run through a
+`utils.graph_loop.GraphSet` (eagerly, or each a CUDA graph on the card).
 
 The host API of the reference (`solve`, `reset_warm_start`, `reset`,
 `solve_nominal_trajectory`, `solve_profiled`, `generate_lqr_controller`,
@@ -35,7 +36,8 @@ from robust_nonlinear_mpc_torch.solvers.fast_sls import (
     warm_shift_persist,
 )
 from robust_nonlinear_mpc_torch.solvers.sqp import SQPOptions, sqp_solve
-from robust_nonlinear_mpc_torch.utils.batch import lane_all_finite, lane_max
+from robust_nonlinear_mpc_torch.utils.batch import lane_all_finite, lane_max, lane_where
+from robust_nonlinear_mpc_torch.utils.graph_loop import GraphSet
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
@@ -79,9 +81,9 @@ class SCPIterResult(NamedTuple):
     cost_QP: torch.Tensor
     sls: object   # FastSLSSolution
     success: torch.Tensor
-    # the restoration iterate (feasibility_restoration only): solved on the
-    # lanes whose iterate is rejected (failed or not finite), the only lanes
-    # that use it; elsewhere X_rest/U_rest are the iterate and rest_ok False
+    # the restoration iterate (feasibility_restoration only), read only on
+    # the lanes whose iterate is rejected (failed or not finite); elsewhere
+    # X_rest/U_rest are the iterate and rest_ok False
     X_rest: torch.Tensor | None = None
     U_rest: torch.Tensor | None = None
     rest_ok: torch.Tensor | None = None
@@ -176,21 +178,41 @@ class SCPSLSSolver(nn.Module):
         qu = 2 * (U @ self.R.T)
         return A, B, c, qx, qu, g_res, gf_res, x0 - X[:, 0]
 
-    def _iteration(self, X, U, x0, persist, restore=None) -> SCPIterResult:
+    def _iteration(self, X, U, x0, persist, restore=None, active=None,
+                   graphs: GraphSet | None = None) -> SCPIterResult:
         """One SCP iteration. Its stages ("scp.linearize", "scp.fast_sls" with
-        "sls.qp" / "sls.backward" / "sls.response" inside, "scp.restoration")
-        are timed inside a `utils.stages.timed()` block and cost nothing
-        outside one. `restore`: whether to solve the restoration iterate
-        (default `feasibility_restoration`; the RTI step never reads it)."""
-        N = self.N
-        with stage("scp.linearize"):
-            A, B, c, qx, qu, g_res, gf_res, xinit_dev = self.assemble_deviation_problem(X, U, x0)
+        "sls.head" / "sls.inner" / "sls.finish" and "sls.qp" / "sls.backward"
+        / "sls.response" inside, "scp.update", "scp.restoration") are timed
+        inside a `utils.stages.timed()` block and cost nothing outside one.
+        `restore`: whether to solve the restoration iterate (default
+        `feasibility_restoration`; the RTI step never reads it). `active`
+        (B,) bool: the lanes whose SCP runs (the others' results are
+        meaningless: they enter fast-SLS's inner loop stopped, and need no
+        restoration). `graphs` (`utils.graph_loop.GraphSet`, default eager)
+        runs the pieces, each a CUDA graph on the card."""
+        g = GraphSet() if graphs is None else graphs
+        dev = g.call("scp.linearize", self.assemble_deviation_problem, X, U, x0)
         with stage("scp.fast_sls"):
-            sls = fast_sls_solve(self.prob, A, B, c, qx, qu, g_res, gf_res, xinit_dev,
-                                 persist, self._fast_sls_opts())
-        X_new = X + sls.X
-        U_new = U + sls.U
-        # signed max defect of the updated iterate (reference parity)
+            sls = fast_sls_solve(self.prob, *dev, persist, self._fast_sls_opts(),
+                                 active=active, graphs=g)
+        X_new, U_new, primal_infeas, cost_nlp, need = g.call(
+            "scp.update", self._update, X, U, sls.X, sls.U, sls.success, active)
+        X_rest = U_rest = rest_ok = None
+        if self.opts.feasibility_restoration if restore is None else restore:
+            X_rest, U_rest, rest_ok = self._restore(X, U, X_new, U_new, need, sls, dev, g)
+        return SCPIterResult(
+            X=X_new, U=U_new, delta_vec=sls.y, persist=sls.persist,
+            primal_infeasibility=primal_infeas, cost=sls.cost_nominal + cost_nlp,
+            cost_QP=sls.cost_nominal, sls=sls, success=sls.success,
+            X_rest=X_rest, U_rest=U_rest, rest_ok=rest_ok,
+        )
+
+    def _update(self, X, U, dX, dU, success, active):
+        """The updated iterate, its signed max defect (reference parity), its
+        NLP cost, and the lanes whose iterate is rejected (failed or not
+        finite) among `active` (all when None)."""
+        N = self.N
+        X_new, U_new = X + dX, U + dU
         f_new = self.m.ddyn(X_new[:, :N], U_new)
         primal_infeas = lane_max(f_new - X_new[:, 1 : N + 1])
         XN = X_new[:, :N]
@@ -199,45 +221,38 @@ class SCPSLSSolver(nn.Module):
             + ((U_new @ self.R.T) * U_new).sum(dim=(1, 2))
             + (X_new[:, N] * (X_new[:, N] @ self.Qf.T)).sum(dim=1)
         )
-        X_rest = U_rest = rest_ok = None
-        if self.opts.feasibility_restoration if restore is None else restore:
-            X_rest, U_rest, rest_ok = self._restore(
-                X, U, X_new, U_new, sls, (A, B, c, qx, qu, g_res, gf_res, xinit_dev))
-        return SCPIterResult(
-            X=X_new, U=U_new, delta_vec=sls.y, persist=sls.persist,
-            primal_infeasibility=primal_infeas, cost=sls.cost_nominal + cost_nlp,
-            cost_QP=sls.cost_nominal, sls=sls, success=sls.success,
-            X_rest=X_rest, U_rest=U_rest, rest_ok=rest_ok,
-        )
+        need = ~(success & lane_all_finite(X_new, U_new))
+        if active is not None:
+            need = need & active
+        return X_new, U_new, primal_infeas, cost_nlp, need
 
-    def _restore(self, X, U, X_new, U_new, sls, dev):
+    def _restore(self, X, U, X_new, U_new, need, sls, dev, graphs: GraphSet | None = None):
         """The soft-slacked solve of the same tightened deviation QP
-        (`solvers/restoration.py`), with the JAX package's IPM options (30
+        (`solvers/restoration.py`) with the JAX package's IPM options (30
         iterations, tolerance 3e-5 in float32 and 1e-8 in float64, the torch
-        Riccati KKT). The JAX package solves it on every lane and its callers
-        read it only where the iterate is rejected; here only those lanes are
-        solved (none, no solve). Returns (X_rest, U_rest, rest_ok)."""
+        Riccati KKT), on every lane as in the JAX package, in an SCP
+        iteration where one host read of `need` (the rejected lanes) shows
+        one; none otherwise. Returns (X_rest, U_rest, rest_ok): the restored
+        iterate where `need`, the iterate itself and False elsewhere, so
+        every lane that reads it reads JAX's every-lane solve."""
+        g = GraphSet() if graphs is None else graphs
+        if not g.any(need):
+            return X_new, U_new, torch.zeros_like(need)
+        return g.call("scp.restoration", self._restoration, X, U, X_new, U_new, need,
+                      sls.backoff, sls.backoff_f, dev)
+
+    def _restoration(self, X, U, X_new, U_new, need, backoff, backoff_f, dev):
         from robust_nonlinear_mpc_torch.solvers.restoration import restoration_solve
 
         A, B, c, qx, qu, g_res, gf_res, xinit_dev = dev
-        need = ~(sls.success & lane_all_finite(X_new, U_new))
-        X_rest, U_rest = X_new.clone(), U_new.clone()
-        rest_ok = torch.zeros_like(need)
-        idx = need.nonzero().flatten()
-        if idx.numel() == 0:
-            return X_rest, U_rest, rest_ok
         ripm = IPMOptions(max_iter=30, tol=3e-5 if self.dtype == torch.float32 else 1e-8,
                           kkt="riccati")
-        with stage("scp.restoration"):
-            rsol = restoration_solve(
-                self.prob.stat, A[idx], B[idx], c[idx], qx[idx], qu[idx],
-                (g_res - sls.backoff)[idx], (gf_res - sls.backoff_f)[idx], xinit_dev[idx],
-                rho=self.opts.restoration_rho, ipm=ripm,
-            )
-        Xr, Ur = X[idx] + rsol.X, U[idx] + rsol.U
-        X_rest[idx], U_rest[idx] = Xr, Ur
-        rest_ok[idx] = rsol.success & lane_all_finite(Xr, Ur)
-        return X_rest, U_rest, rest_ok
+        rsol = restoration_solve(self.prob.stat, A, B, c, qx, qu, g_res - backoff,
+                                 gf_res - backoff_f, xinit_dev,
+                                 rho=self.opts.restoration_rho, ipm=ripm)
+        Xr, Ur = X + rsol.X, U + rsol.U
+        ok = need & rsol.success & lane_all_finite(Xr, Ur)
+        return lane_where(need, Xr, X_new), lane_where(need, Ur, U_new), ok
 
     def _warm_shift(self, X, U):
         """Shift trajectories one step (reference reset_warm_start)."""

@@ -16,6 +16,7 @@ with per-stage statics (and its Cholesky branch for the wide input blocks).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -27,8 +28,15 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     QPStatics,
     solve_qp,
 )
-from robust_nonlinear_mpc_torch.solvers.sqp import SQPOptions, line_search_index
-from robust_nonlinear_mpc_torch.utils.batch import lane_all_finite, lane_max_abs, tree_where
+from robust_nonlinear_mpc_torch.solvers.sqp import (
+    SQPOptions,
+    any_active,
+    line_search_index,
+    loop_state0,
+    masked_iteration,
+)
+from robust_nonlinear_mpc_torch.utils.batch import lane_all_finite, lane_max_abs
+from robust_nonlinear_mpc_torch.utils.graph_loop import GraphSet
 
 SOFT_SQP_OPTS = SQPOptions(
     ipm=IPMOptions(max_iter=120, tol=3e-8), tol_step=1e-5, tol_feas=1e-8
@@ -57,8 +65,12 @@ class SoftNLPSolution(NamedTuple):
 def soft_nlp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
                    rho_soft: float = 1e6, rho_soft_l1: float | None = None,
                    X_init=None, U_init=None, opts: SQPOptions = SOFT_SQP_OPTS,
-                   prox: float = 0.0) -> SoftNLPSolution:
-    """Solve the soft-constrained NLP for a batch of initial states x0 (B, nx)."""
+                   prox: float = 0.0, graphs: GraphSet | None = None,
+                   name: str = "soft_nlp") -> SoftNLPSolution:
+    """Solve the soft-constrained NLP for a batch of initial states x0 (B, nx).
+    The iterations are the SQP's masked loop (`sqp.masked_iteration`, run by
+    `graphs.loop` `name`: eagerly, or as a CUDA graph on the card, whose body
+    runs its QP at the IPM's cap)."""
     nx, nu, ni, ni_f = model.nx, model.nu, model.ni, model.ni_f
     rho2 = float(rho_soft)
     rho1 = float(rho_soft if rho_soft_l1 is None else rho_soft_l1)
@@ -147,7 +159,7 @@ def soft_nlp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
         Bfull = torch.cat([Bu, Bu.new_zeros(Bu.shape[:-1] + (nua - nu,))], dim=-1)
         return A, Bfull, c
 
-    def body(X, Ut, rho, best_cost, stall):
+    def iterate(X, Ut, rho, best_cost, stall, x0):
         A, B, c = linearize(X, Ut)
         h = h_abs - (
             torch.einsum("kri,bki->bkr", Gx_all, X[:, :Naug])
@@ -194,30 +206,25 @@ def soft_nlp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
     if U_init is not None:
         Ut[:, :N, :nu] = torch.as_tensor(U_init, dtype=dtype, device=device)
 
-    full = lambda v: torch.full((Bsz,), v, dtype=dtype, device=device)
-    state = (X, Ut, full(opts.merit_rho_min), full(float("inf")),
-             torch.zeros((Bsz,), dtype=torch.int32, device=device),
-             full(float("inf")), full(float("inf")))
-    it = torch.zeros((Bsz,), dtype=torch.int32, device=device)
-    done = torch.zeros((Bsz,), dtype=torch.bool, device=device)
-    success = torch.zeros_like(done)
-    while True:
-        active = (~done) & (it < opts.max_iter)
-        if not bool(active.any()):
-            break
-        new_state, conv, fail = body(*state[:5])
-        state = tree_where(active, new_state, state)
-        success = torch.where(active, conv, success)
-        done = done | (active & (conv | fail))
-        it = it + active.to(torch.int32)
+    def body(state, x0):
+        return masked_iteration(state, iterate(*state[0][:5], x0), opts.max_iter)
 
-    X, Ut, _, _, _, step_norm, feas = state
+    full = lambda v: torch.full((Bsz,), v, dtype=dtype, device=device)
+    nlp = (X, Ut, full(opts.merit_rho_min), full(float("inf")),
+           torch.zeros((Bsz,), dtype=torch.int32, device=device),
+           full(float("inf")), full(float("inf")))
+    graphs = GraphSet() if graphs is None else graphs
+    state = graphs.loop(name, functools.partial(any_active, max_iter=opts.max_iter), body,
+                        loop_state0(nlp), x0, cap=opts.max_iter)
+    (X, Ut, _, _, _, step_norm, feas), it, _, success = state
     success = success | ((feas < 1e-4) & (step_norm < 1e-1))
+    # clones: on the card the state is the loop's static buffers
+    X, Ut = X.clone(), Ut.clone()
     u, gam, gam_f = split(Ut)
     return SoftNLPSolution(
         X=X[:, : N + 1], U=u[:, :N], gamma=gam[:, :N], gamma_f=gam_f,
         cost=full_cost(X, Ut), cost_nominal=nominal_cost(X, Ut),
-        feas=feas, step_norm=step_norm, iters=it, success=success,
+        feas=feas.clone(), step_norm=step_norm.clone(), iters=it.clone(), success=success,
     )
 
 

@@ -7,11 +7,15 @@
 Gauss-Newton subproblems go to the Riccati-KKT IPM; globalization is an l1
 merit function with a backtracking line search evaluated on the whole
 step-size grid at once. The JAX `lax.while_loop` under `vmap` is a masked
-batch loop: a lane iterates while it is not done and under max_iter.
+batch loop: a lane iterates while it is not done and under max_iter, and a
+lane that has stopped keeps its iterate (`masked_iteration`); the body reads
+nothing from the host, so on the card it is a CUDA graph replayed while any
+lane is active (`utils.graph_loop`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,7 +26,8 @@ from robust_nonlinear_mpc_torch.ops.qp_ipm import (
     QPStatics,
     solve_qp,
 )
-from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, tree_where
+from robust_nonlinear_mpc_torch.utils.batch import lane_max_abs, tree_leaves, tree_where
+from robust_nonlinear_mpc_torch.utils.graph_loop import GraphSet
 
 
 class SQPOptions(NamedTuple):
@@ -67,8 +72,12 @@ def line_search_index(mvals, m0, alphas):
 
 
 def sqp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
-              X_init=None, U_init=None, opts: SQPOptions = SQPOptions()) -> SQPSolution:
-    """Solve the nominal NLP for a batch of initial states x0 (B, nx)."""
+              X_init=None, U_init=None, opts: SQPOptions = SQPOptions(),
+              graphs: GraphSet | None = None, name: str = "sqp") -> SQPSolution:
+    """Solve the nominal NLP for a batch of initial states x0 (B, nx). The
+    iterations are a masked loop (`graphs.loop` `name`: eager, or a
+    `utils.graph_loop.CapturedLoop` on the card, whose body runs its QP at
+    the IPM's cap)."""
     nx, nu, ni = model.nx, model.nu, model.ni
     dtype, device = x0.dtype, x0.device
     Bsz = x0.shape[0]
@@ -98,7 +107,7 @@ def sqp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
         init_gap = (X[..., 0, :] - x0).abs().sum(dim=-1)
         return _traj_cost(X, U, Q, R, Qf) + rho * (d.abs().sum(dim=(-1, -2)) + init_gap)
 
-    def body(X, U, rho):
+    def iterate(X, U, rho, x0):
         A, B, c = model.linearize_traj(X, U)
         h = g - X[:, :N] @ Gx.T - U @ Gu.T
         hf = gf - X[:, N] @ Gf.T
@@ -123,27 +132,46 @@ def sqp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
         conv = (step_n < tol_step) & (feas_n < tol_feas) & sol.success
         return (X_n, U_n, rho_n, step_n, feas_n, sol.lam, sol.lam_f, sol.nu_dyn), conv, ~sol.success
 
-    full = lambda v: torch.full((Bsz,), v, dtype=dtype, device=device)
-    state = (X, U, full(opts.merit_rho_min), full(float("inf")), full(float("inf")),
-             x0.new_zeros((Bsz, N, ni)), x0.new_zeros((Bsz, model.ni_f)),
-             x0.new_zeros((Bsz, N, nx)))
-    it = torch.zeros((Bsz,), dtype=torch.int32, device=device)
-    done = torch.zeros((Bsz,), dtype=torch.bool, device=device)
-    success = torch.zeros_like(done)
-    while True:
-        active = (~done) & (it < opts.max_iter)
-        if not bool(active.any()):
-            break
-        new_state, conv, fail = body(*state[:3])
-        state = tree_where(active, new_state, state)
-        success = torch.where(active, conv, success)
-        done = done | (active & (conv | fail))
-        it = it + active.to(torch.int32)
+    def body(state, x0):
+        return masked_iteration(state, iterate(*state[0][:3], x0), opts.max_iter)
 
-    X, U, rho, step_norm, feas, lam, lam_f, nu_dyn = state
+    full = lambda v: torch.full((Bsz,), v, dtype=dtype, device=device)
+    nlp = (X, U, full(opts.merit_rho_min), full(float("inf")), full(float("inf")),
+           x0.new_zeros((Bsz, N, ni)), x0.new_zeros((Bsz, model.ni_f)),
+           x0.new_zeros((Bsz, N, nx)))
+    graphs = GraphSet() if graphs is None else graphs
+    state = graphs.loop(name, functools.partial(any_active, max_iter=opts.max_iter), body,
+                    loop_state0(nlp), x0, cap=opts.max_iter)
+    (X, U, rho, step_norm, feas, lam, lam_f, nu_dyn), it, _, success = state
     success = success | ((feas < max(1e-6, tol_feas)) & (step_norm < max(1e-6, 10 * tol_step)))
     dual_vec = torch.cat([nu_dyn.reshape(Bsz, -1), lam.reshape(Bsz, -1), lam_f], dim=1)
+    # clones: on the card the state is the loop's static buffers
     return SQPSolution(
-        X=X, U=U, cost=_traj_cost(X, U, Q, R, Qf), feas=feas, step_norm=step_norm,
-        iters=it, success=success, lam=lam, lam_f=lam_f, dual_vec=dual_vec,
+        X=X.clone(), U=U.clone(), cost=_traj_cost(X, U, Q, R, Qf), feas=feas.clone(),
+        step_norm=step_norm.clone(), iters=it.clone(), success=success, lam=lam.clone(),
+        lam_f=lam_f.clone(), dual_vec=dual_vec,
     )
+
+
+def loop_state0(nlp):
+    """The masked loop's state: (the iterate's tensors, it, done, success)."""
+    B = tree_leaves(nlp)[0].shape[0]
+    device = tree_leaves(nlp)[0].device
+    no = torch.zeros((B,), dtype=torch.bool, device=device)
+    return nlp, torch.zeros((B,), dtype=torch.int32, device=device), no, no
+
+
+def any_active(state, *_, max_iter):
+    _, it, done, _ = state
+    return ((~done) & (it < max_iter)).any()
+
+
+def masked_iteration(state, stepped, max_iter):
+    """One masked iteration of the SQP loop (the JAX `while_loop` body under
+    `vmap`): the lanes not done and under `max_iter` take `stepped` = (new
+    iterate, converged, failed); the others keep theirs."""
+    nlp, it, done, success = state
+    new, conv, fail = stepped
+    active = (~done) & (it < max_iter)
+    return (tree_where(active, new, nlp), it + active.to(torch.int32),
+            done | (active & (conv | fail)), torch.where(active, conv, success))

@@ -7,8 +7,8 @@ the loops run a count of iterations that the host knows without asking the
 device (the iteration caps), with the finished lanes frozen by a select.
 Every lane then ends where the early-exit loop leaves it, as a vmapped
 `lax.while_loop` of the JAX package does. `sim.closed_loop.capture_mpc_step`
-enters it around the warm-up and the capture; the CPU tests enter it to
-hold the two forms against each other.
+and `utils.graph_loop` enter it around a warm-up and a capture; the CPU
+tests enter it to hold the two forms against each other.
 """
 
 from __future__ import annotations

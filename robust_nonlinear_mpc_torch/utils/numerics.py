@@ -158,6 +158,12 @@ def spd_solve_small(H: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     # its lane, as jnp.linalg.cholesky does, instead of raising for the batch
     L, info = torch.linalg.cholesky_ex(H)
     L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    if L.is_cuda:
+        # the two triangular solves of cholesky_solve, by cuBLAS's batched
+        # trsm: on the card a batched cholesky_solve runs MAGMA, whose queue
+        # allocates device memory and so cannot be captured in a CUDA graph
+        Y = torch.linalg.solve_triangular(L, F, upper=False)
+        return torch.linalg.solve_triangular(L.mT, Y, upper=True)
     return torch.cholesky_solve(F, L)
 
 

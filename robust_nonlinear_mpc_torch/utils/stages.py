@@ -1,10 +1,14 @@
 """Host-clock stage times of the solver, for measurement runs.
 
-`stage(name)` marks a stage of a closed loop ("seed", "step"), of its seed
-("seed.sqp", "seed.soft_nlp", "seed.polish"), of the SCP iteration
-("scp.linearize", "scp.fast_sls", "scp.restoration"), of fast-SLS
-("sls.qp", "sls.backward", "sls.response") or of the comparison CLI
-("compare.robust", "compare.soft"). It does nothing unless a
+`stage(name)` marks a stage of a closed loop ("seed", "step", "advance"),
+of its seed ("seed.sqp", "seed.soft_nlp", "seed.polish", each with its
+loop "<name>.loop"), of the SCP
+iteration ("scp.linearize", "scp.fast_sls", "scp.update",
+"scp.restoration", "scp.accept"), of fast-SLS ("sls.head", "sls.inner",
+"sls.finish", "sls.qp", "sls.backward", "sls.response") or of the
+comparison CLI ("compare.robust", "compare.soft"); every piece of
+`utils.graph_loop.GraphSet` is a stage of its name (on the card, its
+graph's replays). It does nothing unless a
 `timed()` block is open; inside one, each recorded stage synchronizes the
 device at its start and end and appends its seconds to the block's record
 (nested stages count in their parent too). Inside `host_sync.no_host_sync()`

@@ -9,7 +9,7 @@ ni = 42, ni_f = 34), N = 4, the cases of tests/test_restoration.py:
 * an over-tightening with no feasible point: the hard QP fails, the
   restoration returns a finite iterate whose slacks cover the violated
   rows, within 1e-8 of JAX;
-* the restoration branch of `SCPSLSSolver._iteration` solves only the
+* the restoration branch of `SCPSLSSolver._iteration` restores only the
   rejected lanes.
 """
 
