@@ -6,7 +6,17 @@ Phases (each prints a line; any failed check raises and exits non-zero
 before the result lines):
   1. the device and its nvidia-smi name and power limit;
   2. build every kernel (csrc/fused_qp.cu, fused_ipm.cu, fused_response.cu,
-     fused_backward.cu) with nvcc for sm_90a;
+     fused_backward.cu, graph_while.cu) with nvcc for sm_90a; then (2b,
+     untimed, `check_device_while`) the WHILE node that every captured loop
+     is (`utils.graph_loop.device_while`): a captured toy loop whose count
+     comes from device data exits at exactly that count over replays with
+     other data (0, and past the cap, where it stops at the cap), a nested
+     WHILE does the same, a body with a cuBLAS GEMM and a K1 launch
+     captures and replays, the toy loop in a plain `torch.cuda.graph`
+     sharing a pool counts the same, and `solve_qp` captured as one graph
+     equals the eager solve bit for bit with its K1/K2 (K6) launches at
+     B = 512 (fused, fused_iter, riccati; float32 and float64); record in
+     `chiprun_out/chip_smoke_while.json`;
   3. each kernel's registers per thread, shared bytes per block, resident
      blocks per SM and waves at B = 512 (from the CUDA runtime); each kernel
      against its plain torch version on the card, relative to each output's
@@ -53,8 +63,9 @@ before the result lines):
      steps (the twin alone runs 200);
   9. guarantee mode, the until-convergence closed loop in the JAX form
      (every lane, masked, fixed shapes; on the card the seed's loops and
-     each piece of an SCP round are CUDA graphs, with host reads of a
-     device flag between them): (a) the rocket at N = 6, B = 8, float64,
+     each piece of an SCP round are CUDA graphs, their loops WHILE nodes,
+     with host reads of a device flag between them): (a) the rocket at
+     N = 6, B = 8, float64,
      2 steps, until the SCP criterion 1e-3 (at most 40 SCP iterations),
      with feasibility restoration, stall damping 0.5 after 5 SCP
      iterations and the soft fallback, kkt="fused" on the card (K1/K2)
@@ -64,7 +75,9 @@ before the result lines):
      build_chunked_converged_loop at scp_per_dispatch 1 and 5; and each
      chunked run on the card's CUDA graphs against the eager masked loop
      on the card (`capture=False`): the same flags and counts, X/U and
-     the backoffs within 1e-9, with the host reads of each step;
+     the backoffs within 1e-9, each step's K1/K2 launches equal and no
+     host read by a captured loop (each a WHILE node), with the host reads
+     of each step;
      (b) the full-mitigation Monte-Carlo validation of the rocket
      (main_monte_carlo_validation --converged --soft-fallback --restoration
      --max-iter-scp 40 --qp-tol 1e-5 --stall-damping 0.5 --kkt fused),
@@ -79,8 +92,9 @@ before the result lines):
      K1/K2 launches, the success flags against the published run's first 3
      steps, and the device busy share of the last step's first SCP round
      through its graphs (profiler). Phase 9b runs in a second process,
-     started first, while this one builds and runs the untimed phases 4, 5
-     and 9a, so its seconds are contended; phases 3 and 6-8, which time,
+     started first, which waits for this one's build (its graphs' WHILE
+     nodes need the library) and then runs while this one runs the
+     untimed phases 4, 5, 10-12 and 9a, so its seconds are contended; phases 3 and 6-8, which time,
      run after it, alone on the card. `--guarantee-alone steps|stages` runs
      phase 9b alone (after the build), with the seed and steps timed or
      every stage timed;
@@ -88,10 +102,12 @@ before the result lines):
      card (run after phase 5, among the untimed phases): (a) B = 512,
      N = 15, float32, 3 steps from the bench seed in the default, the
      fused-kernel and the K3 configuration, each with its kernels in the
-     graph; (b) the default configuration at B = 529; (c) float64, N = 6,
+     graph and each replay with the eager step's kernel launches (its QP a
+     WHILE node that runs the eager loop's iterations); (b) the default
+     configuration at B = 529, the same; (c) float64, N = 6,
      B = 8, the captured step on the card against the eager step on the
      CPU, phase 5's criteria; (d) the captured K = 8 program against 8
-     replays of the one-step graph; (e) build_batched_closed_loop in RTI
+     replays of the one-step graph, with the same launches; (e) build_batched_closed_loop in RTI
      mode (the reference's two-QP RTI options, kkt="fused", float64, N = 6,
      B = 8, 3 steps), on the card on the captured step against the CPU,
      phase 9a's criteria. (a), (b) and (d): identical success,
@@ -144,10 +160,14 @@ before the result lines):
      `chiprun_out/chip_smoke_13.json`.
 Every launch counter is zeroed just before each bench run and before phase
 9b (in its own process), and read just after. A wrapper counts a launch
-recorded into a CUDA graph once, at capture; a replay launches without it,
-so the bench record counts one replay's launches times the replays, and
-the kernels record's `launches` are the first run of each path's timed
-window, counted so. The last lines are the kernels record, the nvidia-smi
+recorded into a CUDA graph once, at capture; a replay launches without it.
+So a captured graph counts its launches outside loops once a replay, and
+those of a loop's body (an IPM iteration) once a body run, from the WHILE
+node's device counter (`utils.graph_loop.Recording`): the bench record's
+`kernel_launches`, the guarantee record's K1/K2 a step and the kernels
+record's `launches` (the first run of each path's timed window) are
+counted so. Phases 10 and 9a require each captured step's launches to be
+the eager step's. The last lines are the kernels record, the nvidia-smi
 line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`, `13`)
 runs a subset (phases 1 and 2 always run) and then prints neither result
 line; so does `--guarantee-alone`.
@@ -160,6 +180,7 @@ import json
 import os
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -193,6 +214,7 @@ from robust_nonlinear_mpc_torch.tools.kernel_times import (
     response_inputs,
 )
 from robust_nonlinear_mpc_torch.utils.batch import tree_leaves, tree_map
+from robust_nonlinear_mpc_torch.utils.graph_loop import device_while
 from robust_nonlinear_mpc_torch.utils.hardware import PEAK_BYTES, PEAK_FLOPS
 
 OUT_DIR = Path("chiprun_out")
@@ -560,6 +582,261 @@ def check_fused_iter():
             fail("fused_iter and riccati solutions differ by more than 1e-4")
 
 
+def _count_to(state, target):
+    """A toy masked loop: lane b counts x up to target[b] (device data),
+    stirring a float state on its way."""
+    x, acc = state
+    run = x < target
+    return x + run.to(x.dtype), acc + run.to(acc.dtype)[:, None] * torch.tanh(acc + 1.0)
+
+
+def _any_below(state, target):
+    return (state[0] < target).any()
+
+
+def _outer_body(state, n_outer, base, cap):
+    """The nested toy: outer iteration i runs an inner WHILE of base[i]
+    iterations that adds one to x each time."""
+    i, x = state
+    inner = lambda s, m: (s[0] + 1, s[1] + 1)
+    below = lambda s, m: (s[0] < m).any()
+    _, x = device_while(below, inner, (torch.zeros_like(i), x), base[i.long()], cap=cap)
+    return i + 1, x
+
+
+def _gemm_k1_body(state, n, W, newton, rhs):
+    """A body holding a cuBLAS GEMM and a K1 launch."""
+    k, M, s = state
+    dX, dU, _, _ = fused_qp.factor_predictor(*newton, *rhs)
+    return k + 1, torch.tanh(M @ W), s + 1e-3 * (dX.sum() + dU.sum())
+
+
+def _runs(rec, before):
+    return [a - b for a, b in zip(rec.runs(), before)]
+
+
+def check_device_while(B=64, cap=100):
+    """Phase 2b: the WHILE node (`utils.graph_loop.device_while`,
+    `csrc/graph_while.cu`), untimed. (a) A captured toy loop whose count
+    comes from device data exits at exactly that count, with the plain
+    loop's state bit for bit, over replays with other data (the count 0,
+    and one above the cap, which stops at the cap); (b) a nested WHILE (each
+    outer iteration an inner WHILE of a device-given count) does the same;
+    (c) a body holding a cuBLAS GEMM and a K1 launch captures and replays,
+    with the eager loop's result and K1 counted once a body run; (d) the
+    toy loop captured inside a plain `torch.cuda.graph` sharing a pool with
+    another graph counts the same. (e) `solve_qp` captured as one graph
+    (its loop a WHILE node) against the eager solve on rocket QPs at
+    B = 512 for kkt fused, fused_iter and riccati, float32 and float64:
+    the same iterations and X/U bit for bit, and the eager solve's K1/K2 (or
+    K6) launches. Returns the record of the checks."""
+    from robust_nonlinear_mpc_torch.ops import graph_while
+    from robust_nonlinear_mpc_torch.utils import graph_loop as gl
+
+    dev = torch.device("cuda")
+    graph_while.prepare(dev)
+    rng = np.random.default_rng(11)
+    record = {}
+    state0 = (torch.zeros(B, dtype=torch.int32, device=dev),
+              torch.as_tensor(rng.standard_normal((B, 8)), dtype=torch.float32, device=dev))
+    target = torch.zeros(B, dtype=torch.int32, device=dev)
+    draws = [rng.integers(0, 8, B), rng.integers(0, 24, B), np.zeros(B, int),
+             np.minimum(rng.integers(0, 150, B), 149)]
+    draws[3][5] = 149
+
+    def toy_replays(label, graph, rec, out):
+        """Replays with each draw against the node's plain twin
+        (`graph_while.plain_condition` driving the same body eagerly)."""
+        counts = []
+        for d in draws:
+            target.copy_(torch.as_tensor(d, dtype=torch.int32))
+            before = rec.runs()
+            graph.replay()
+            n = _runs(rec, before)[0]
+            ref, runs = state0, torch.zeros(2, dtype=torch.int64, device=dev)
+            go = graph_while.plain_condition(_any_below(ref, target), runs, cap, False)
+            while bool(go):
+                ref = _count_to(ref, target)
+                go = graph_while.plain_condition(_any_below(ref, target), runs, cap, True)
+            want = min(int(d.max()), cap)
+            if not n == int(runs[1]) == want:
+                fail(f"[2b {label}] the WHILE node ran {n} bodies, its plain twin "
+                     f"{int(runs[1])}, the data ask for {want}")
+            for a, b in zip(out, ref):
+                if not torch.equal(a, b):
+                    fail(f"[2b {label}] the captured loop's state differs from the plain twin's")
+            counts.append(n)
+        return counts
+
+    # (a) through graph_loop.capturing
+    g = torch.cuda.CUDAGraph()
+    with gl.capturing(g) as rec:
+        out = device_while(_any_below, _count_to, state0, target, cap=cap)
+    record["a_runs"] = toy_replays("a", g, rec, out)
+    # (b) nested
+    n_outer = torch.zeros((1,), dtype=torch.int32, device=dev)
+    base = torch.zeros((16,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    gn = torch.cuda.CUDAGraph()
+    outer = lambda s, n, b: _outer_body(s, n, b, cap)
+    with gl.capturing(gn) as recn:
+        outn = device_while(lambda s, n, b: (s[0] < n).any(), outer, (zero, zero), n_outer, base,
+                            cap=16)
+    record["b_runs"] = []
+    for k in range(3):
+        nb = rng.integers(0, 12, 16)
+        no = (5, 0, 16)[k]
+        base.copy_(torch.as_tensor(nb, dtype=torch.int32))
+        n_outer.fill_(no)
+        before = recn.runs()
+        gn.replay()
+        runs = _runs(recn, before)
+        want = [no, int(nb[:no].sum())]
+        if runs != want or int(outn[1]) != want[1] or int(outn[0]) != no:
+            fail(f"[2b b] nested WHILE: runs {runs} and state {[int(t) for t in outn]}, "
+                 f"the data ask for {want}")
+        record["b_runs"].append(runs)
+    # (c) a cuBLAS GEMM and K1 in the body
+    newton, rhs, _ = newton_inputs(16, 15, NX, NU, torch.float32, dev, seed=4)
+    W = torch.as_tensor(rng.standard_normal((8, 8)) / 3, dtype=torch.float32, device=dev)
+    n_c = torch.full((1,), 9, dtype=torch.int32, device=dev)
+    st_c = (torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.standard_normal((4, 8, 8)), dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.float32, device=dev))
+    cond_c = lambda s, n, *_: (s[0] < n).any()
+    args_c = (n_c, W, newton, rhs)
+    fused_qp.reset_launch_counts()
+    ref_c = gl.while_loop(cond_c, _gemm_k1_body, st_c, args_c, cap=cap)
+    eager_k1 = fused_qp.launch_counts()["factor_predictor"]
+    gc = torch.cuda.CUDAGraph()
+    with gl.capturing(gc) as recc:
+        outc = device_while(cond_c, _gemm_k1_body, st_c, *args_c, cap=cap)
+    gc.replay()
+    k1 = recc.launches(1)["factor_predictor"]
+    dm = float((outc[1] - ref_c[1]).abs().max())
+    ds = float((outc[2] - ref_c[2]).abs())
+    if int(outc[0]) != 9 or k1 != eager_k1 or dm > 1e-6 or ds > 1e-4:
+        fail(f"[2b c] GEMM + K1 body: {int(outc[0])} bodies, K1 {k1} (eager {eager_k1}), "
+             f"|dM| {dm:.2e}, |ds| {ds:.2e}")
+    record["c"] = {"bodies": int(outc[0]), "k1": k1, "bit_for_bit":
+                   bool(torch.equal(outc[1], ref_c[1]) and torch.equal(outc[2], ref_c[2]))}
+    # (d) a plain torch.cuda.graph sharing a pool with another graph
+    pool = torch.cuda.graph_pool_handle()
+    gd, ge = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with gl.recording() as recd, torch.cuda.graph(gd, pool=pool):
+        outd = device_while(_any_below, _count_to, state0, target, cap=cap)
+    with torch.cuda.graph(ge, pool=pool):
+        other = state0[1] * 2.0 + 1.0
+    ge.replay()
+    record["d_runs"] = toy_replays("d", gd, recd, outd)
+    if record["d_runs"] != record["a_runs"] or not torch.equal(other, state0[1] * 2.0 + 1.0):
+        fail(f"[2b d] the loop in a shared pool counts {record['d_runs']}, "
+             f"through capturing {record['a_runs']}")
+    say(f"[2b] WHILE nodes: toy loop bodies {record['a_runs']} (device-given counts, the "
+        f"last at its cap {cap}), nested (outer, inner) {record['b_runs']}, GEMM + K1 body "
+        f"{record['c']}, in a shared-pool torch.cuda.graph {record['d_runs']}")
+    del g, gn, gc, gd, ge
+    # (e) solve_qp as one graph against the eager solve
+    record["e"] = []
+    for dtype in (torch.float32, torch.float64):
+        stat, data = rocket_qps(512, 15, dtype, "cuda", seed=3)
+        for kkt in ("fused", "fused_iter", "riccati"):
+            opts = IPMOptions(max_iter=30, tol=3e-5, kkt=kkt)
+            fused_qp.reset_launch_counts()
+            ref = solve_qp(stat, data, opts)
+            eager = {k: v for k, v in fused_qp.launch_counts().items() if v}
+            call = gl.CapturedCall(lambda d: solve_qp(stat, d, opts), (data,))
+            got = call(data)
+            launched = {k: v for k, v in call.launched().items() if v}
+            same = (torch.equal(got.iters, ref.iters) and torch.equal(got.X, ref.X)
+                    and torch.equal(got.U, ref.U))
+            row = {"dtype": str(dtype), "kkt": kkt, "bit_for_bit": same, "launches": launched,
+                   "eager_launches": eager, "max_iters": int(ref.iters.max()),
+                   "mean_iters": float(ref.iters.float().mean())}
+            record["e"].append(row)
+            if not same or launched != eager:
+                fail(f"[2b e] solve_qp as a graph against eager: {row}")
+            del call
+    say(f"[2b] solve_qp as one graph (a WHILE node) equals the eager solve bit for bit, with "
+        f"its launches: " + "; ".join(f"{r['kkt']} {r['dtype'][6:]} {r['launches']} "
+                                      f"(iterations mean {r['mean_iters']:.2f}, max "
+                                      f"{r['max_iters']})" for r in record["e"]))
+    record["f"] = while_overhead()
+    torch.cuda.empty_cache()
+    return record
+
+
+KERNELS_A_BODY = 50
+
+
+def _tiny_body(state, *_):
+    """KERNELS_A_BODY small elementwise kernels and the count's increment."""
+    x, i = state
+    for _ in range(KERNELS_A_BODY):
+        x = x * 1.0001
+    return x, i + 1
+
+
+def while_overhead(bodies=200, inner=10):
+    """Phase 2b (f): what a body costs inside a WHILE node. The same body
+    of small kernels run `bodies` times as a straight graph (the body
+    unrolled 20 times, replayed), as the body of one WHILE node, and as the
+    body of a WHILE node nested `inner` deep in another: device us a kernel
+    of the body (CUDA events around a replay), and the kernel records
+    torch.profiler sees in one replay against the kernels launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from robust_nonlinear_mpc_torch.utils import graph_loop as gl
+
+    dev = torch.device("cuda")
+    x0 = torch.ones((512, 32), device=dev)
+    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+    n = torch.full((1,), bodies, dtype=torch.int32, device=dev)
+    m = torch.full((1,), inner, dtype=torch.int32, device=dev)
+    below = lambda s, k: (s[1] < k).any()
+
+    def unrolled():
+        s = (x0, zero)
+        for _ in range(20):
+            s = _tiny_body(s)
+        return s
+
+    def nested():
+        outer = lambda s, k: (device_while(below, _tiny_body, (s[0], zero), m, cap=inner)[0],
+                              s[1] + 1)
+        return device_while(below, outer, (x0, zero), n // inner, cap=bodies)
+
+    forms = {"straight": (unrolled, bodies // 20),
+             "while": (lambda: device_while(below, _tiny_body, (x0, zero), n, cap=bodies), 1),
+             "nested": (nested, 1)}
+    out = {}
+    for name, (fn, replays) in forms.items():
+        g = torch.cuda.CUDAGraph()
+        with gl.capturing(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.replay()
+            torch.cuda.synchronize()
+        seen = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+        launched = (bodies // replays) * KERNELS_A_BODY
+        out[name] = {"us_a_kernel": 1e3 * start.elapsed_time(end) / (bodies * KERNELS_A_BODY),
+                     "profiler_records": seen, "body_kernels_a_replay": launched}
+        del g
+    say("[2b f] a body of small kernels, device us a kernel: " + ", ".join(
+        f"{k} {v['us_a_kernel']:.2f} (profiler saw {v['profiler_records']} kernel records "
+        f"of a replay holding {v['body_kernels_a_replay']} body kernels)" for k, v in out.items()))
+    return out
+
+
 def card_vs_cpu(label, N, Bsz, configure, store_phi, seed, nominal=None, captured=False):
     """3 MPC steps from one nominal, the card against the CPU, each with its
     solver options from `configure(opts, device)`: identical success and QP
@@ -661,30 +938,40 @@ def compare_outs(label, got, ref):
 
 def captured_vs_eager(label, wl, carry, w_seq, steps=3):
     """`steps` replays of the captured step against as many eager steps
-    from the same carry and disturbances; the kernels of the configuration
-    must be in the graph. Frees the graph's pool after."""
-    eager, c = [], carry
+    from the same carry and disturbances, each replay with the eager step's
+    kernel launches (counted by the WHILE nodes' device counters: the IPM
+    runs the eager step's iterations, not its cap); the kernels of the
+    configuration must be in the graph. Frees the graph's pool after.
+    Returns the launches of the captured steps, one dict a step."""
+    eager, eager_launches, c = [], [], carry
     for i in range(steps):
+        before = Counter(bench.launch_counts())
         c, out = wl.mpc_step(c, w_seq[i])
         eager.append(out)
+        eager_launches.append(dict(Counter(bench.launch_counts()) - before))
     t0 = time.perf_counter()
     step = capture_mpc_step(wl.solver, carry)
     t_capture = time.perf_counter() - t0
-    worst, c = 0.0, carry
+    worst, c, launches = 0.0, carry, []
     for i in range(steps):
+        before = step.launched()
         c, out = step(c, w_seq[i])
         worst = max(worst, compare_outs(f"{label} step {i}", out, eager[i]))
+        launches.append(dict(step.launched() - before))
+        if launches[-1] != eager_launches[i]:
+            fail(f"[{label}] step {i}: the captured step launched {launches[-1]}, the eager "
+                 f"step {eager_launches[i]}")
     torch.cuda.synchronize()
-    graph_kernels = {k: v for k, v in step.launches.items() if v}
     say(f"[{label}] B={carry[3].shape[0]} kkt={wl.solver.opts.ipm.kkt} response={wl.response} "
         f"sls_block={wl.sls_block}: {steps} captured steps equal the eager steps "
-        f"({'bit for bit' if worst == 0.0 else f'max relative {worst:.3e}'}); success "
-        f"{float(out[6].float().mean()):.4f}, mean QP iterations "
-        f"{[round(float(o[7].float().mean()), 3) for o in eager]}; warm-up and capture "
-        f"{t_capture:.1f} s; kernels per replay {graph_kernels}")
+        f"({'bit for bit' if worst == 0.0 else f'max relative {worst:.3e}'}) with their "
+        f"kernel launches {launches}; success {float(out[6].float().mean()):.4f}, mean QP "
+        f"iterations {[round(float(o[7].float().mean()), 3) for o in eager]}, max "
+        f"{[int(o[7].max()) for o in eager]}; warm-up and capture {t_capture:.1f} s; WHILE "
+        f"nodes {len(step.recording.loops)}")
     del step
     torch.cuda.empty_cache()
-    return graph_kernels
+    return launches
 
 
 def check_capture(wls):
@@ -702,9 +989,9 @@ def check_capture(wls):
                     "8": ("backward_K",)}
     for label, kernels in path_kernels.items():
         wl = wls[label]
-        in_graph = captured_vs_eager(f"10a {label}", wl, wl.carry, wl.w_seq)
-        if not all(k in in_graph for k in kernels):
-            fail(f"[10a {label}] the captured step holds no launch of {kernels}: {in_graph}")
+        launched = captured_vs_eager(f"10a {label}", wl, wl.carry, wl.w_seq)
+        if not all(k in step for step in launched for k in kernels):
+            fail(f"[10a {label}] a captured step launched none of {kernels}: {launched}")
     wl = wls["6"]
     X, U, _, x0s = wl.carry
     more = lambda t: torch.cat([t, t[:17]])
@@ -733,8 +1020,11 @@ def check_capture(wls):
     for a, b in zip(tree_leaves(c_prog), tree_leaves(c_single)):
         if not torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)):
             fail("[10d] the K = 8 program's carry differs from 8 single replays'")
+    k_prog, k_one = dict(prog.launched()), dict(one.launched())
+    if k_prog != k_one:
+        fail(f"[10d] the K = {K} program launched {k_prog}, {K} single replays {k_one}")
     say(f"[10d] the captured K = {K} program equals {K} replays of the one-step graph "
-        f"(outs and carry), kernels per replay {prog.launches}")
+        f"(outs, carry and kernel launches {k_prog})")
     del one, prog
     torch.cuda.empty_cache()
     check_rti_closed_loop()
@@ -770,18 +1060,25 @@ def check_rti_closed_loop(Bsz=8, N=6, steps=3, seed=0, devices=("cuda", "cpu")):
 def run_bench(label, wl):
     """One bench twin run (warm-in, timed window, B = 1 latency loop) of a
     built workload, its launch counts zeroed just before and read just
-    after."""
+    after (the WHILE nodes' tests too: each captured step holds some)."""
+    from robust_nonlinear_mpc_torch.ops import graph_while
+
     bench.reset_launch_counts()
+    graph_while.reset_launch_counts()
     t0 = time.perf_counter()
     record, carry = bench.run(wl, n_lat=LATENCY_STEPS)
     launches = bench.launch_counts()
+    while_launches = graph_while.launch_counts()
+    if min(while_launches.values()) <= 0:
+        fail(f"bench twin [{label}]: the captured steps hold no WHILE node: {while_launches}")
     say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
         f"sls_block={record['sls_block']} on the captured step "
         f"ran in {time.perf_counter() - t0:.1f} s: {record['value']} solves/s, "
         f"on_device_step_ms {record['on_device_step_ms']} (K walls "
         f"{record['on_device_fit_points_ms']}), latency p50 "
         f"{record['single_step_latency_ms']} ms, wrapper counts (warm-ups, captures, the "
-        f"eager check) {launches}, per replay {record['kernel_launches_per_step']}")
+        f"eager check) {launches}, a timed step (mean) {record['kernel_launches_per_step']}, "
+        f"WHILE tests captured {while_launches}")
     print(json.dumps(record), flush=True)
     if record["success_fraction"] != 1.0 or not record["finite"]:
         fail(f"bench twin [{label}]: success_fraction must be 1.0 and the state finite")
@@ -839,7 +1136,8 @@ def bench_phases(wls):
             fail(f"the bench path [{label}] did not launch {kernels} in the timed steps")
         profile[label]["records"].append(record)
         if "stages" not in profile[label]:
-            # the timed window's launches: one replay's times the replays
+            # the timed window's launches, the IPM iterations by the WHILE
+            # nodes' device counters
             launches.update({k: record["kernel_launches"][k] for k in kernels})
             profile[label].update(breakdown(label, wls[label], carry))
         torch.cuda.empty_cache()
@@ -1098,17 +1396,36 @@ def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunke
             # the masked loop's results do not depend on scp_per_dispatch:
             # one eager run is the reference of every captured one
             t0 = time.perf_counter()
-            eager = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd,
-                                                 capture=False)(x0s, Ws)
+            eager_run = build_chunked_converged_loop(solvers[card], steps, scp_per_dispatch=kpd,
+                                                     capture=False)
+            eager = eager_run(x0s, Ws)
             t_eager = time.perf_counter() - t0
         same = compare_logs(f"9a chunked {kpd} captured/eager", ch, eager, tol=1e-9)
         worst = compare_logs(f"9a chunked {kpd}", lanes(ch), ref)
         steps_rec = run.record["steps"]
+        k12 = lambda rec: [[c.get("factor_predictor", 0), c.get("resolve", 0)]
+                           for c in rec["step_launches"]]
+        if card == "cuda":
+            # at the eager run's scp_per_dispatch the same rounds run; at a
+            # larger one the rounds after the last lane is decided and before
+            # the next read run too (every lane frozen, the QPs still solved)
+            got_k, eager_k = np.array(k12(run.record)), np.array(k12(eager_run.record))
+            if not (np.array_equal(got_k, eager_k) if kpd == chunked[0]
+                    else (got_k >= eager_k).all()):
+                fail(f"[9a] chunked {kpd}: K1/K2 launches a step {k12(run.record)} as CUDA "
+                     f"graphs, {k12(eager_run.record)} eagerly at scp_per_dispatch "
+                     f"{chunked[0]}")
+            if run.record["loop_host_reads"] != 0:
+                fail(f"[9a] chunked {kpd}: the captured loops read the device "
+                     f"{run.record['loop_host_reads']} times")
         say(f"[9a] chunked scp_per_dispatch={kpd} on {card}, captured {t_ch:.1f} s "
-            f"(host reads per step {[c['host_reads'] for c in steps_rec]}, graph replays "
-            f"{[sum(c.values()) - c['host_reads'] for c in steps_rec]}) against the eager "
-            f"masked loop (scp_per_dispatch={chunked[0]}, {t_eager:.1f} s): max |diff| "
-            f"{same:.2e}; against the {host} batched "
+            f"(host reads per step {[c['host_reads'] for c in steps_rec]}, of them by loops "
+            f"{run.record['loop_host_reads']}; graph replays "
+            f"{[sum(c.values()) - c['host_reads'] for c in steps_rec]}; K1/K2 launches a step "
+            f"{k12(run.record)}) against the eager masked loop (scp_per_dispatch="
+            f"{chunked[0]}, {t_eager:.1f} s, host reads per step "
+            f"{[c['host_reads'] for c in eager_run.record['steps']]}, K1/K2 "
+            f"{k12(eager_run.record)}): max |diff| {same:.2e}; against the {host} batched "
             f"loop: max |diff| {worst:.2e}")
 
 
@@ -1159,9 +1476,9 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     """Phase 9b: the published full-mitigation converged Monte-Carlo
     validation of the rocket on the card (float32, N = 15), through the
     driver a user runs, with T cut from 10 to 3: the seed's loops and every
-    piece of an SCP round as CUDA graphs, with host reads of a device flag
-    between them (the inner loop's, the restoration's and, once every
-    scp_per_dispatch = 2 rounds, whether every lane is decided). The
+    piece of an SCP round as CUDA graphs, their loops WHILE nodes, with
+    host reads of a device flag between them (the restoration's and, once
+    every scp_per_dispatch = 2 rounds, whether every lane is decided). The
     violation count checks (x_t, u_t) for t < T - 1 and x_0 is the draw, so
     T = 3 is the least at which it checks a state the controller produced
     (x_1); the tube containment checks x_1 and x_2. Fails unless the run
@@ -1171,9 +1488,10 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     and each step (`utils.stages`: "seed" and "step" only, which
     synchronize the card once at each end; with `stages` every stage, each
     synchronized at its ends: the seconds of each kind of graph replay),
-    reports each step's host reads, graph replays and K1/K2 launches (each
-    graph's launches a replay times its replays) from the driver's
-    `.graphs.json`, and the busy share of the last step's first SCP round.
+    reports each step's host reads, graph replays (a loop's: its body runs)
+    and K1/K2 launches (outside loops once a replay, in a loop's body once
+    a body run) from the driver's `.graphs.json`, and the busy share of the
+    last step's first SCP round.
     Writes its record to chiprun_out/`out` and returns it."""
     from robust_nonlinear_mpc_torch.expe import main_monte_carlo_validation as mc
     from robust_nonlinear_mpc_torch.sim import closed_loop as cl
@@ -1732,8 +2050,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     if args.guarantee_worker:
-        # the seed needs no kernel; the first K1 launch loads the extension
-        # that the main process builds meanwhile
+        # the seed's first capture needs the library (its WHILE nodes): wait
+        # for the main process's build before the timed run
+        cuda_lib.build_extension()
         guarantee_mode(stages=True)
         return 0
     if args.parallel_rank is not None or args.entry_worker:
@@ -1779,6 +2098,8 @@ def main(argv=None):
         cuda_lib.build_extension(verbose=True)
         say(f"[2] built {', '.join(s.name for s in cuda_lib.SOURCES)} for sm_90a "
             f"in {time.perf_counter() - t0:.1f} s")
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_while.json").write_text(json.dumps(check_device_while(), indent=1))
         # untimed phases, beside the workers; the CPU references leave them two cores
         threads = torch.get_num_threads()
         torch.set_num_threads(max(1, threads - 2))

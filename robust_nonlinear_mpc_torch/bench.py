@@ -312,8 +312,8 @@ def make_record(wl, *, solves_per_s, ok, qp_iters, finite, lats, launches, gpu,
     step times in seconds, `gpu` = (device name, nvidia-smi name, power
     limit in W), `walls` the K-step programs' median walls {K: ms},
     `launches` the timed window's kernel launches and `launches_per_step`
-    one replay's, `eager_check` the eager step against the last timed
-    replay."""
+    their mean over its steps, `eager_check` the eager step against the
+    last timed replay."""
     from robust_nonlinear_mpc_torch.utils.hardware import PEAK_BYTES, PEAK_FLOPS
     from robust_nonlinear_mpc_torch.utils.numerics import tube_prec
 
@@ -352,8 +352,9 @@ def make_record(wl, *, solves_per_s, ok, qp_iters, finite, lats, launches, gpu,
         "step_program": "cuda_graph",
         "step_program_note": (
             "the step runs as one captured CUDA graph (sim.closed_loop.capture_mpc_step): "
-            "the IPM runs its largest iteration cap with finished lanes frozen, so every "
-            "lane ends where the eager step's early exit leaves it"
+            "each IPM loop is a WHILE node that tests 'any lane active' on the device, so "
+            "it runs the eager step's iterations and every lane ends where the eager "
+            "step's early exit leaves it"
         ),
         "flops_per_solve": round(flops, 0),
         "bytes_per_solve": None,
@@ -389,8 +390,9 @@ def make_record(wl, *, solves_per_s, ok, qp_iters, finite, lats, launches, gpu,
         "kernel_launches": launches,
         "kernel_launches_per_step": launches_per_step,
         "kernel_launches_note": (
-            "launches in the timed window: one replay's launches (counted by the "
-            "wrappers at capture) times the replays"
+            "launches in the timed window's replays: those outside the IPM loops once a "
+            "replay (counted by the wrappers at capture), those of an IPM iteration once "
+            "an iteration (the WHILE nodes' device counters)"
         ),
         "eager_check": eager_check,
         "soft_fallback_lanes": wl.n_soft_fallback,
@@ -417,6 +419,7 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 200):
     for i in range(n_warm):
         carry, out = step(carry, wl.w_seq[i])
     torch.cuda.synchronize()
+    launched = step.launched()
 
     t0 = time.perf_counter()
     for i in range(wl.n_rep):
@@ -425,7 +428,7 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 200):
         carry, out = step(carry, wl.w_seq[n_warm + i])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = {k: v * wl.n_rep for k, v in step.launches.items()}
+    launches = dict(step.launched() - launched)
     finite = bool(torch.isfinite(carry[0]).all() and torch.isfinite(carry[3]).all())
     ok, qp_iters = out[6].clone(), out[7].clone()
     _, eager = wl.mpc_step(last_in, wl.w_seq[n_warm + wl.n_rep - 1])
@@ -462,7 +465,8 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 200):
         wl, solves_per_s=wl.B * wl.n_rep / (t1 - t0), ok=ok, qp_iters=qp_iters,
         finite=finite, lats=lats, launches=launches,
         gpu=(torch.cuda.get_device_name(wl.device), name, limit_w), walls=walls,
-        launches_per_step=step.launches, eager_check=eager_check,
+        launches_per_step={k: v / wl.n_rep for k, v in launches.items()},
+        eager_check=eager_check,
     )
     return record, carry
 

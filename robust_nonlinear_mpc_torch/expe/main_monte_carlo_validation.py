@@ -218,19 +218,13 @@ def graph_record(records, scp_per_dispatch):
     lanes), written beside the artifact as `<artifact>.graphs.json` (the
     artifact keeps the JAX driver's keys): whether its loops and pieces ran
     as CUDA graphs (`captured`), the host reads of a device flag and the
-    graph replays (eagerly: the pieces run) of the seed and of each step
-    (chunk-major lists), each piece's replays summed over the steps, and
-    the port's kernel launches of each step's replays (each graph's
-    launches a replay times its replays; empty when nothing was captured)."""
+    graph replays (a loop's: its body runs; eagerly: the pieces run) of the
+    seed and of each step (chunk-major lists), each piece's replays summed
+    over the steps, and the port's kernel launches of each step (as CUDA
+    graphs: each graph's launches outside its loops once a replay and
+    those of each loop body once a body run, from the WHILE nodes' device
+    counters; eagerly: the wrappers' counts)."""
     runs = lambda c: sum(v for k, v in c.items() if k != "host_reads")
-
-    def kernels(c, per_replay):
-        out = Counter()
-        for name, n in c.items():
-            for k, v in per_replay.get(name, {}).items():
-                out[k] += n * v
-        return dict(out)
-
     by_piece = Counter()
     for r in records:
         for c in r["steps"]:
@@ -244,8 +238,7 @@ def graph_record(records, scp_per_dispatch):
         "host_reads_per_step": [c["host_reads"] for r in records for c in r["steps"]],
         "graph_replays_per_step": [runs(c) for r in records for c in r["steps"]],
         "graph_replays_by_piece": dict(sorted(by_piece.items())),
-        "kernel_launches_per_step": [kernels(c, r["launches_per_replay"])
-                                     for r in records for c in r["steps"]],
+        "kernel_launches_per_step": [dict(c) for r in records for c in r["step_launches"]],
     }
 
 

@@ -2,13 +2,15 @@
 
 The sources in `csrc/` (`fused_qp.cu`: the Newton kernels, `fused_ipm.cu`:
 the whole-iteration kernel, `fused_response.cu`: the response kernel,
-`fused_backward.cu`: the SLS backward Riccati kernel) are
+`fused_backward.cu`: the SLS backward Riccati kernel, `graph_while.cu`: the
+WHILE nodes of `ops/graph_while.py`) are
 compiled with nvcc for sm_90a on first use, by `torch.utils.cpp_extension.load`
 (ninja builds the sources in parallel), into one shared library under
 `build/robust_nonlinear_mpc_torch/` next to the package. The library has a
 plain C interface, bound here with ctypes; no source includes PyTorch's
-headers. A failed build raises, and so does a launch whose C function
-returns a CUDA error.
+headers (a WHILE body's allocations reach a pool of its own through
+`torch.cuda.use_mem_pool`, from Python). A failed build raises, and so does
+a launch whose C function returns a CUDA error.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
 SOURCES = [CSRC / "fused_qp.cu", CSRC / "fused_ipm.cu", CSRC / "fused_response.cu",
-           CSRC / "fused_backward.cu"]
+           CSRC / "fused_backward.cu", CSRC / "graph_while.cu"]
 BUILD_DIR = _PKG_DIR.parent / "build" / "robust_nonlinear_mpc_torch"
 
 _LIB = None
@@ -72,6 +74,12 @@ def build_extension(verbose: bool = False):
             fn = getattr(lib, f"rnm_{name}_info_{sfx}")
             fn.argtypes = [ptr, ptr]
             fn.restype = i32
+    i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
+    lib.rnm_while_begin.argtypes = [ptr, ptr, i64, ptr, ptr, ctypes.POINTER(u64)]
+    lib.rnm_while_end.argtypes = [u64, ptr, ptr, i64, ptr]
+    lib.rnm_while_stream.argtypes = [ctypes.POINTER(ptr)]
+    for fn in (lib.rnm_while_begin, lib.rnm_while_end, lib.rnm_while_stream):
+        fn.restype = i32
     lib.rnm_error_string.argtypes = [i32]
     lib.rnm_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -14,15 +14,17 @@ Problem (one per lane of the leading batch dimension):
 3-D stacks); every `QPData` field carries the batch first. The JAX
 `lax.while_loop` under `vmap` becomes a masked batch loop: a lane is active
 while it is not done and under its own iteration cap, inactive lanes are
-frozen with a select, and the loop ends when no lane is active (one host
-sync per iteration). Inside `utils.host_sync.no_host_sync()` (a captured
-CUDA graph) it runs the largest iteration cap instead, with no host read;
-the freeze makes every lane end bit for bit where the early exit leaves it.
+frozen with a select, and the loop ends when no lane is active:
+`utils.graph_loop.device_while` over one (cond, body) pair. Eagerly the
+host reads "any lane active" before every iteration; in a CUDA graph under
+capture the loop is a WHILE node that tests it on the device; inside
+`utils.host_sync.no_host_sync()` on the CPU it runs the largest iteration
+cap, `max_iter_bound`. The freeze makes every lane end bit for bit where
+the early exit leaves it, in all three forms.
 """
 
 from __future__ import annotations
 
-import itertools
 from typing import NamedTuple
 
 import torch
@@ -34,6 +36,7 @@ from robust_nonlinear_mpc_torch.utils.batch import (
     lane_where,
     tree_where,
 )
+from robust_nonlinear_mpc_torch.utils.graph_loop import device_while
 from robust_nonlinear_mpc_torch.utils.host_sync import host_sync_allowed
 from robust_nonlinear_mpc_torch.utils.numerics import (
     mv,
@@ -532,8 +535,25 @@ def solve_qp(
     new bounds with a margin, duals floored, then Mehrotra's initial-point
     shift. `pre`: the condensed-KKT precompute of `data`'s (A, B) for
     kkt="condensed" (built here when None), which fast-SLS shares between
-    the QPs of one solve.
+    the QPs of one solve. The loop is `ipm_loop`'s (cond, body) pair run by
+    `utils.graph_loop.device_while`.
     """
+    if max_iter_dyn is None:
+        max_iter_bound = int(opts.max_iter)
+    elif max_iter_bound is None and not host_sync_allowed():
+        raise ValueError("solve_qp under no_host_sync() needs max_iter_bound with max_iter_dyn")
+    cond, body, carry, finish = ipm_loop(stat, data, opts, init, max_iter_dyn, pre)
+    return finish(device_while(cond, body, carry, cap=max_iter_bound))
+
+
+def ipm_loop(stat: QPStatics, data: QPData, opts: IPMOptions, init=None, max_iter_dyn=None,
+             pre=None):
+    """The IPM loop of `solve_qp` (same arguments) as the JAX
+    `lax.while_loop`'s pieces: (cond, body, carry, finish). carry = (the
+    iterate with its residuals, iterations (B,), done (B,)); `body` is one
+    masked Mehrotra iteration (a lane that is done or at its cap keeps its
+    state), `cond` whether any lane is active (a 0-dim bool), and
+    finish(carry) the `QPSolution`."""
     if opts.kkt in _NOT_PORTED_KKT:
         raise NotImplementedError(
             f"IPMOptions.kkt={opts.kkt!r} is not ported: {_NOT_PORTED_KKT[opts.kkt]}"
@@ -549,12 +569,8 @@ def solve_qp(
     n_comp = N * ni + ni_f
     if max_iter_dyn is None:
         cap = torch.full((Bsz,), int(opts.max_iter), dtype=torch.int32, device=device)
-        max_iter_bound = int(opts.max_iter)
     else:
         cap = torch.as_tensor(max_iter_dyn, device=device).to(torch.int32).expand(Bsz)
-    sync = host_sync_allowed()
-    if not sync and max_iter_bound is None:
-        raise ValueError("solve_qp under no_host_sync() needs max_iter_bound with max_iter_dyn")
 
     if init is None:
         X0 = torch.zeros((Bsz, N + 1, nx), dtype=dtype, device=device)
@@ -624,27 +640,33 @@ def solve_qp(
             return _mehrotra_iteration(stat, data, state, newton, tau=opts.tau,
                                        n_comp=n_comp, scale_p=scale_p, dnu_from=dnu_from)
 
-    R = _residuals(stat, data, X0, U0, lam0, s0, lamf0, sf0, nu0)
-    state = (X0, U0, lam0, s0, lamf0, sf0, nu0, R)
-    it = torch.zeros((Bsz,), dtype=torch.int32, device=device)
-    done = torch.zeros((Bsz,), dtype=torch.bool, device=device)
-    for _ in itertools.count() if sync else range(max_iter_bound):
+    def cond(carry):
+        _, it, done = carry
+        return ((~done) & (it < cap)).any()
+
+    def body(carry):
+        # the masked iteration: inactive lanes are frozen by the select
+        state, it, done = carry
         active = (~done) & (it < cap)
-        if sync and not bool(active.any()):
-            break
         new_state, res_n, bad = iterate(state, ~active)
         lam_n, s_n, lamf_n, sf_n = new_state[2:6]
         mu_n = (lane_sum(lam_n * s_n) + lane_sum(lamf_n * sf_n)) / n_comp
         scale_mu = 1.0 + lane_max_abs(data.qx, data.qu, lam_n, lamf_n)
         at_floor = mu_n < 10.0 * eps_mach * scale_mu
         done_n = (res_n < opts.tol) | bad | at_floor
-        state = tree_where(active, new_state, state)
-        done = torch.where(active, done_n, done)
-        it = it + active.to(torch.int32)
+        return (tree_where(active, new_state, state), it + active.to(torch.int32),
+                torch.where(active, done_n, done))
 
-    X, U, lam, s, lam_f, s_f, nu_dyn, R = state
-    res = _kkt_scalar(data, scale_p, n_comp, R, lam, lam_f, s, s_f)
-    return _finalize(stat, data, opts, N, res, X, U, lam, s, lam_f, s_f, nu_dyn, it)
+    def finish(carry):
+        (X, U, lam, s, lam_f, s_f, nu_dyn, R), it, _ = carry
+        res = _kkt_scalar(data, scale_p, n_comp, R, lam, lam_f, s, s_f)
+        return _finalize(stat, data, opts, N, res, X, U, lam, s, lam_f, s_f, nu_dyn, it)
+
+    R = _residuals(stat, data, X0, U0, lam0, s0, lamf0, sf0, nu0)
+    carry = ((X0, U0, lam0, s0, lamf0, sf0, nu0, R),
+             torch.zeros((Bsz,), dtype=torch.int32, device=device),
+             torch.zeros((Bsz,), dtype=torch.bool, device=device))
+    return cond, body, carry, finish
 
 
 def _finalize(stat, data, opts, N, res, X, U, lam, s, lam_f, s_f, nu_dyn, iters):

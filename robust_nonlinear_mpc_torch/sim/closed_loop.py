@@ -28,11 +28,12 @@ lane with fixed shapes, a decided lane keeps its state by a select, and no
 piece reads the device from the host. On the card the seed's loops and each
 piece of an SCP round (linearize, fast-SLS's head, inner loop and finish,
 the update, the restoration, the acceptance) and of a step (`_advance`) are
-CUDA graphs (`utils.graph_loop.GraphSet`); the host reads one device flag
-to decide whether to replay a loop body again, whether any lane needs the
-restoration, and, once every `scp_per_dispatch` rounds, whether every lane
-is decided. On the CPU the same pieces run eagerly. Both converged drivers
-run the same loop (`_scp_until_converged`), so they cannot drift apart.
+CUDA graphs (`utils.graph_loop.GraphSet`), their loops WHILE nodes that
+exit on the device; the host reads one device flag to decide whether any
+lane needs the restoration, and, once every `scp_per_dispatch` rounds,
+whether every lane is decided. On the CPU the same pieces run eagerly.
+Both converged drivers run the same loop (`_scp_until_converged`), so they
+cannot drift apart.
 """
 
 from __future__ import annotations
@@ -58,11 +59,11 @@ from robust_nonlinear_mpc_torch.utils.batch import (
 )
 from robust_nonlinear_mpc_torch.utils.graph_loop import (
     GraphSet,
+    capturing,
     copy_tree_into,
     unaliased,
     warm_up,
 )
-from robust_nonlinear_mpc_torch.utils.host_sync import no_host_sync
 from robust_nonlinear_mpc_torch.utils.stages import stage
 
 
@@ -368,12 +369,11 @@ class CapturedMPCStep:
     input buffers (the carry is not copied when it is the one the last replay
     returned), replays the graph and returns (carry', out). Both live in
     static buffers that the next replay overwrites: keep them with `clone`.
-    `launches`: each kernel's launches in one replay, counted by the
-    wrappers at capture (a replay launches without them)."""
+    `recording`: the capture's `utils.graph_loop.Recording` (its WHILE
+    nodes, one a QP); `launched()`: each kernel's launches in every replay
+    so far, those of the QPs' iterations from the nodes' device counters."""
 
     def __init__(self, solver, carry, steps):
-        from robust_nonlinear_mpc_torch.ops.cuda_lib import launch_counts
-
         x = carry[3]
         device = x.device
         body = make_mpc_step(solver) if steps == 1 else make_mpc_scan(solver)
@@ -387,16 +387,19 @@ class CapturedMPCStep:
         # from the static copy: the caller's carry does not move
         warm_up(run_steps, device)
 
-        before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph), no_host_sync():
+        with capturing(self.graph) as self.recording:
             c, out = run_steps()
             # an out that is an input buffer (the plant state x) is copied
             # before the carry goes back into the input buffers
             self._out = unaliased(out, avoid=self._carry)
             # the new carry goes back into the input buffers, as a scan's
             copy_tree_into(self._carry, c)
-        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
+        self.replays = 0
+
+    def launched(self):
+        """The port's kernel launches of every replay so far (one host read)."""
+        return self.recording.launches(self.replays)
 
     def __call__(self, carry, w):
         if tuple(w.shape) != self._w_shape:
@@ -405,15 +408,17 @@ class CapturedMPCStep:
         copy_tree_into(self._carry, carry)
         self._w.copy_(w.reshape(self._w.shape))
         self.graph.replay()
+        self.replays += 1
         return self._carry, self._out
 
 
 def capture_mpc_step(solver: SCPSLSSolver, carry, steps: int = 1) -> CapturedMPCStep:
     """The RTI closed-loop step of `make_mpc_step`, `steps` of them in a row,
     captured on the card as one CUDA graph with its own memory pool: the
-    `rti` SCP iterations of `_accept_rti` and `_advance`, with the IPM loops
-    at their host-known iteration bounds (`utils.host_sync.no_host_sync`),
-    so every lane ends bit for bit where the eager step leaves it.
+    `rti` SCP iterations of `_accept_rti` and `_advance`, each IPM loop a
+    WHILE node that exits on the device where the eager loop exits
+    (`utils.graph_loop.device_while`), so every lane ends bit for bit where
+    the eager step leaves it, after as many IPM iterations.
 
     `carry` = (X, U, persist, x) gives the shapes (and the warm-up's state).
     Returns a callable with `make_mpc_step`'s contract, (carry, w) ->
@@ -510,20 +515,22 @@ def _converged_steps(solver, carry, Ws, per_read, graphs: GraphSet, record):
     """The until-convergence steps from the seed's carry: per step the SCP
     rounds (`_scp_until_converged`), the step's out, and `_advance` with the
     next step's entry state ("advance"), each piece run by `graphs`.
-    Appends each step's host reads and piece runs to `record`."""
+    Appends each step's host reads and piece runs to `record["steps"]` and
+    its kernel launches to `record["step_launches"]` (Counters)."""
     X, U, persist, x = carry
     st = graphs.static("scp.state", _conv_state0(solver, X, U, persist))
     x = graphs.static("scp.x", x)
     advance = functools.partial(_advance_entry, solver)
     outs = []
     for t in range(Ws.shape[1]):
-        before = graphs.counts.copy()
+        before, launched = graphs.counts, graphs.kernel_launches()
         with stage("step"):
             st = _scp_until_converged(solver, st, x, per_read, graphs)
             # the static buffers are the next step's
             outs.append(tree_map(torch.clone, _step_out(st, x)))
             st, x = graphs.call("advance", advance, st, x, Ws[:, t], into=(st, x))
-        record.append(graphs.counts - before)
+        record["steps"].append(graphs.counts - before)
+        record["step_launches"].append(graphs.kernel_launches() - launched)
     return outs
 
 
@@ -538,13 +545,15 @@ def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None, per_
     `per_read` SCP rounds. On the card (unless `capture` is False) the seed's
     loops and the converged step's pieces are CUDA graphs of one
     `GraphSet` a run. After a run, `run.record` holds whether it captured,
-    the seed's and each step's host reads and piece runs (Counters), and
-    each captured piece's kernel launches a replay."""
+    the seed's and each converged step's host reads and piece runs, each
+    converged step's kernel launches (Counters; `GraphSet.counts` and
+    `kernel_launches`) and the host reads the loops made
+    (`loop_host_reads`: none on the card, where each is a WHILE node)."""
 
     def run(x0s, Ws):
         x0s, Ws = _as_inputs(solver, x0s, Ws)
         graphs = GraphSet(x0s.device, capture)
-        record = {"captured": graphs.capture, "steps": []}
+        record = {"captured": graphs.capture, "steps": [], "step_launches": []}
         with stage("seed"):
             X, U, ok = _nominal(solver, x0s, graphs)
             if solver.opts.nominal_soft_fallback:
@@ -552,7 +561,7 @@ def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None, per_
         record["seed"] = graphs.counts.copy()
         carry = (X, U, _persist0(solver, x0s.shape[0]), x0s)
         if int(solver.opts.rti) <= 0:
-            outs = _converged_steps(solver, carry, Ws, per_read, graphs, record["steps"])
+            outs = _converged_steps(solver, carry, Ws, per_read, graphs, record)
         else:
             captured = graphs.capture
             step = capture_mpc_step(solver, carry) if captured else make_mpc_step(solver)
@@ -562,7 +571,7 @@ def _closed_loop(solver: SCPSLSSolver, sim_steps: int, fallback_chunk=None, per_
                     carry, out = step(carry, Ws[:, t])
                 # a replay overwrites the last one's outputs
                 outs.append(tree_map(torch.clone, out) if captured else out)
-        record["launches_per_replay"] = {k: dict(v) for k, v in graphs.launches.items()}
+        record["loop_host_reads"] = graphs.loop_reads
         run.record = record
         return _stack_log(outs, sim_steps)
 

@@ -7,8 +7,8 @@ Two branches, as in the JAX package, all state batch-leading:
   runs `rti_steps` iterations and a final QP, the until-convergence mode
   iterates to the primal criterion (at most `max_iter`) as a masked batch
   loop in which a lane that has stopped keeps its state: a head (the entry
-  QP and the first iteration), a body (one masked iteration, its QP at the
-  IPM's cap inside a CUDA graph) and a finish, run by a
+  QP and the first iteration), a body (one masked iteration, its QP a WHILE
+  node nested in the loop's own inside a CUDA graph) and a finish, run by a
   `utils.graph_loop.GraphSet` (eagerly, or as CUDA graphs on the card);
 * the dual-recycling RTI (`recycle_eta=True`): one tightened QP per solve,
   the backward Riccati on the eta kept from the previous solve's QP duals,

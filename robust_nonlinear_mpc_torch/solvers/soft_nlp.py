@@ -69,8 +69,8 @@ def soft_nlp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
                    name: str = "soft_nlp") -> SoftNLPSolution:
     """Solve the soft-constrained NLP for a batch of initial states x0 (B, nx).
     The iterations are the SQP's masked loop (`sqp.masked_iteration`, run by
-    `graphs.loop` `name`: eagerly, or as a CUDA graph on the card, whose body
-    runs its QP at the IPM's cap)."""
+    `graphs.loop` `name`: eagerly, or as a CUDA graph on the card, a WHILE
+    node whose body holds its QP's WHILE node)."""
     nx, nu, ni, ni_f = model.nx, model.nu, model.ni, model.ni_f
     rho2 = float(rho_soft)
     rho1 = float(rho_soft if rho_soft_l1 is None else rho_soft_l1)

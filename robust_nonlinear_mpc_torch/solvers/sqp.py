@@ -9,8 +9,9 @@ merit function with a backtracking line search evaluated on the whole
 step-size grid at once. The JAX `lax.while_loop` under `vmap` is a masked
 batch loop: a lane iterates while it is not done and under max_iter, and a
 lane that has stopped keeps its iterate (`masked_iteration`); the body reads
-nothing from the host, so on the card it is a CUDA graph replayed while any
-lane is active (`utils.graph_loop`).
+nothing from the host, so on the card it is the body of a WHILE node in a
+CUDA graph, replayed on the device while any lane is active
+(`utils.graph_loop`).
 """
 
 from __future__ import annotations
@@ -76,8 +77,8 @@ def sqp_solve(model, N: int, Q, R, Qf, x0: torch.Tensor,
               graphs: GraphSet | None = None, name: str = "sqp") -> SQPSolution:
     """Solve the nominal NLP for a batch of initial states x0 (B, nx). The
     iterations are a masked loop (`graphs.loop` `name`: eager, or a
-    `utils.graph_loop.CapturedLoop` on the card, whose body runs its QP at
-    the IPM's cap)."""
+    `utils.graph_loop.CapturedLoop` on the card, a WHILE node whose body
+    holds its QP's WHILE node)."""
     nx, nu, ni = model.nx, model.nu, model.ni
     dtype, device = x0.dtype, x0.device
     Bsz = x0.shape[0]

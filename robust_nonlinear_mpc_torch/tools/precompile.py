@@ -57,11 +57,11 @@ def precompile(system="rocket", N=15, batch=1, kkt="fused", verbose=True):
     step(carry, t(np.zeros((batch, m.nw))))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    info = {"build_s": t1 - t0, "capture_s": t2 - t1, "launches": dict(step.launches)}
+    info = {"build_s": t1 - t0, "capture_s": t2 - t1, "launches": dict(step.launched())}
     if verbose:
         print(f"precompiled {system} N={N} B={batch} on {torch.cuda.get_device_name(0)}: "
               f"kernels built in {info['build_s']:.1f} s, step captured and replayed in "
-              f"{info['capture_s']:.1f} s (kernel launches a step {info['launches']})",
+              f"{info['capture_s']:.1f} s (kernel launches of that replay {info['launches']})",
               flush=True)
     return step, carry, info
 

@@ -2,41 +2,51 @@
 `lax.while_loop` and of the compiled loop bodies around it.
 
 A JAX `while_loop` under `vmap` runs its body on every lane while any lane's
-condition holds and keeps a stopped lane's state by a select. The port's
-bodies are written the same way (masked, fixed shapes, no host read), so a
-body can be captured once as a CUDA graph and replayed; the host only
-decides whether to replay again, by reading one device bool ("any lane
-running"), which is the counterpart of the `while_loop` condition.
+condition holds and keeps a stopped lane's state by a select, and inside a
+jitted program it tests the condition on the device. The port's bodies are
+written the same way (masked, fixed shapes, no host read), and:
 
-* `CapturedLoop(body, state, cap, reads_every=1, cond=...)`: the loop.
-  Called with a state, it copies the state into its static buffers and
-  replays the body while `cond` says so, reading the flag once every
-  `reads_every` replays and at most `cap` replays in all; extra replays
-  leave stopped lanes as they are. On the CPU the same body runs eagerly
-  with the same exit test (`while_loop`).
-* `CapturedCall(fn, args)`: a straight-line piece, one graph.
+* `device_while(cond, body, state, *args, cap=...)`: the loop. While a
+  graph captures on the card it is one WHILE node (`ops/graph_while.py`):
+  the node replays the body on the device while `cond` (a 0-dim bool) holds,
+  at most `cap` bodies a launch, and the host reads nothing. On the CPU, or
+  outside a capture, it is `while_loop`: a host read before every body, or,
+  inside `no_host_sync()`, `cap` bodies.
+* `capturing(graph, pool)`: a capture (`torch.cuda.graph` inside
+  `no_host_sync()`) that records its WHILE nodes, their body pools and its
+  kernel launches in a `Recording`, which counts a replay's launches: those
+  outside every loop once a replay, those of a loop's body once a body run,
+  from the node's device counter.
+* `CapturedLoop(body, state, cap, cond=...)`: a loop on its own, one graph
+  of `cond` and the WHILE node over `body`; a call copies the state into
+  its static buffers and replays once. On the CPU (or with
+  `capture=False`) the same body runs eagerly (`while_loop`).
+* `CapturedCall(fn, args)`: a piece, one graph (its loops WHILE nodes).
 * `GraphSet`: the graphs of one run, captured lazily by name on their first
   call and sharing one memory pool, and the static buffers of the state
   they carry (`static`). A call copies its inputs into the graph's own
   static input buffers and returns the graph's static outputs, which the
   next replay of that graph overwrites. On the CPU (or with
-  `capture=False`) every call runs eagerly. It counts the host reads and
-  the runs of each piece.
+  `capture=False`) every call runs eagerly. It counts the host reads, the
+  runs of each piece and the kernel launches.
 
-Capture runs under `host_sync.no_host_sync()`: the IPM and the other loops
-inside a piece run their host-known caps with finished lanes frozen. A
-captured function may close over tensors whose values do not change from
+A captured function may close over tensors whose values do not change from
 one call to the next (model and problem constants): the graph keeps the
 first call's. Everything else is an argument. Every static output lives
 outside the shared pool (a graph copies its results into buffers allocated
 before its capture), so a graph's temporaries, which other graphs of the
-pool may reuse, never hold a value that outlives its replay. A failed
-capture or replay raises; nothing falls back to eager execution.
+pool may reuse, never hold a value that outlives its replay; a WHILE body's
+temporaries live in a pool of their own, kept by the capture's `Recording`
+(which `capturing` hangs on the graph).
+The warm-up before a capture (`warm_up`) runs each loop's body once. A
+failed capture or replay raises; nothing falls back to eager execution.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import Counter
+from contextlib import contextmanager
 
 import torch
 
@@ -82,44 +92,187 @@ def unaliased(tree, avoid=()):
     return tree_map(fresh, tree)
 
 
+_warming = 0
+
+
 def warm_up(fn, device):
     """Run fn() once on a side stream inside `no_host_sync()`, as a capture
     will (builds the kernel library, creates the cuBLAS handles, sets the
-    kernels' shared-memory attributes); returns its result."""
+    kernels' shared-memory attributes), each `device_while` running its body
+    once; returns its result."""
+    global _warming
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side), no_host_sync():
-        out = fn()
+    _warming += 1
+    try:
+        with torch.cuda.stream(side), no_host_sync():
+            out = fn()
+    finally:
+        _warming -= 1
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     return out
 
 
-def _capture(graph, pool, fn, out, device):
-    """Capture fn() into `graph`, copying its result into the static buffers
-    `out` (a tree matching fn's result). Returns the port's kernel launches
-    that one replay makes (the wrappers count them once, at capture)."""
-    from robust_nonlinear_mpc_torch.ops.cuda_lib import launch_counts
-
-    before = launch_counts()
-    with torch.cuda.graph(graph, pool=pool), no_host_sync():
-        copy_tree_into(out, unaliased(fn(), avoid=out))
-    torch.cuda.synchronize(device)
-    return Counter({k: v - before[k] for k, v in launch_counts().items() if v > before[k]})
-
-
-def while_loop(cond, body, state, args=(), *, cap, reads_every=1, read=None):
+def while_loop(cond, body, state, args=(), *, cap=None, read=None):
     """Eagerly: state = body(state, *args) while read(cond(state, *args)),
-    testing before the first body and then once every `reads_every` bodies,
-    at most `cap` bodies. `read` turns the device flag into a host bool
-    (default bool); inside `no_host_sync()` the loop runs `cap` bodies and
-    reads nothing."""
+    tested before every body, at most `cap` bodies (None: no cap). `read`
+    turns the device flag into a host bool (default bool); inside
+    `no_host_sync()` the loop runs `cap` bodies and reads nothing."""
     read = read or bool
-    for n in range(int(cap)):
-        if n % reads_every == 0 and host_sync_allowed() and not read(cond(state, *args)):
+    if not host_sync_allowed():
+        if cap is None:
+            raise ValueError("a loop inside no_host_sync() needs its host-known cap")
+        for _ in range(int(cap)):
+            state = body(state, *args)
+        return state
+    for _ in itertools.count() if cap is None else range(int(cap)):
+        if not read(cond(state, *args)):
             break
         state = body(state, *args)
     return state
+
+
+class _WhileNode:
+    """One captured WHILE node: its body's memory pool, its counter slot and
+    the port's kernel launches of one body run (nested loops' excluded)."""
+
+    def __init__(self, pool, slot, device):
+        self.pool, self.slot, self.device = pool, slot, device
+        self.launches = Counter()
+
+
+class Recording:
+    """What one capture recorded: its WHILE nodes (in the order they were
+    begun, nested ones after their parent) and `straight`, the port's kernel
+    launches of one replay outside every loop. Keeps the bodies' pools."""
+
+    def __init__(self):
+        self.loops: list[_WhileNode] = []
+        self.straight = Counter()
+
+    def runs(self) -> list[int]:
+        """Each node's body runs since its capture (one host read a device)."""
+        from robust_nonlinear_mpc_torch.ops.graph_while import run_totals
+
+        totals = {}
+        for n in self.loops:
+            if n.device not in totals:
+                totals[n.device] = run_totals(n.device)
+        return [totals[n.device][n.slot] for n in self.loops]
+
+    def launches(self, replays: int) -> Counter:
+        """The port's kernel launches of `replays` replays and every body run
+        of its nodes since the capture."""
+        out = Counter({k: v * replays for k, v in self.straight.items()})
+        for node, n in zip(self.loops, self.runs()):
+            for k, v in node.launches.items():
+                out[k] += v * n
+        return out
+
+
+# the recordings of the captures under way (innermost last); a node
+# captured under none (a plain `torch.cuda.graph` of a caller) keeps its
+# pool in `_UNOWNED` for the life of the process
+_recordings: list[Recording] = []
+_UNOWNED = Recording()
+_body_depth = 0
+
+
+def _launch_counts():
+    from robust_nonlinear_mpc_torch.ops.cuda_lib import launch_counts
+
+    return Counter(launch_counts())
+
+
+@contextmanager
+def recording():
+    """Record the WHILE nodes and the kernel launches of the capture(s) run
+    inside: yields a `Recording`, complete when the block ends. It holds the
+    nodes' body pools: keep it as long as the graph (`capturing` does)."""
+    rec = Recording()
+    before = _launch_counts()
+    _recordings.append(rec)
+    try:
+        yield rec
+    finally:
+        _recordings.pop()
+    total = _launch_counts() - before
+    for node in rec.loops:
+        total -= node.launches
+    rec.straight = total
+
+
+@contextmanager
+def capturing(graph, pool=None):
+    """Capture into `graph` (`torch.cuda.graph`, sharing `pool`) inside
+    `no_host_sync()`: yields the capture's `Recording`, which the graph
+    keeps (`graph.recording`), so its WHILE bodies' pools live as long as
+    the graph."""
+    from robust_nonlinear_mpc_torch.ops import graph_while
+
+    graph_while.prepare(torch.cuda.current_device())
+    with recording() as rec:
+        graph.recording = rec
+        with torch.cuda.graph(graph, pool=pool), no_host_sync():
+            yield rec
+
+
+def _capturing(state) -> bool:
+    leaves = tree_leaves(state)
+    return (bool(leaves) and leaves[0].device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
+def device_while(cond, body, state, *args, cap: int):
+    """`lax.while_loop(cond, body, state)` with `args` passed to both:
+    `body(state, *args) -> state` (masked: a stopped lane keeps its state)
+    and `cond(state, *args)` -> a 0-dim bool ("any lane running"). At most
+    `cap` bodies (host-known). Returns the final state; the caller's `state`
+    is not changed.
+
+    While a graph captures on the current stream of the card: one WHILE
+    node. The state lives in static buffers (clones of `state`, in the
+    capture's pool) that each body run overwrites in place; the test before
+    the first body and after each body is `cond` on those buffers, and the
+    node counts its body runs on the device. Otherwise `while_loop` (in a
+    `warm_up`, one body)."""
+    if _capturing(state):
+        return _captured_while(cond, body, state, args, int(cap))
+    # the loop's own buffers, as in a capture: a body may write them in place
+    state = tree_map(torch.clone, state)
+    if _warming:
+        return body(state, *args)
+    return while_loop(cond, body, state, args, cap=cap)
+
+
+def _captured_while(cond, body, state, args, cap):
+    global _body_depth
+    from robust_nonlinear_mpc_torch.ops import graph_while
+
+    device = tree_leaves(state)[0].device
+    rec = _recordings[-1] if _recordings else _UNOWNED
+    runs, slot = graph_while.counter(device)
+    node = _WhileNode(torch.cuda.MemPool(), slot, device)
+    rec.loops.append(node)
+    first_nested = len(rec.loops)
+    buf = tree_map(torch.clone, state)
+    outer = torch.cuda.current_stream(device)
+    side = graph_while.body_stream(device, _body_depth)
+    handle = graph_while.begin(cond(buf, *args), runs, cap, outer, side)
+    before = _launch_counts()
+    _body_depth += 1
+    try:
+        with torch.cuda.stream(side), torch.cuda.use_mem_pool(node.pool, device):
+            copy_tree_into(buf, unaliased(body(buf, *args), avoid=buf))
+            graph_while.end(handle, cond(buf, *args), runs, cap, side)
+    finally:
+        _body_depth -= 1
+    own = _launch_counts() - before
+    for nested in rec.loops[first_nested:]:
+        own -= nested.launches
+    node.launches = own
+    return buf
 
 
 class CapturedCall:
@@ -127,8 +280,8 @@ class CapturedCall:
     (clones of the first call's `args`). Calling it copies the arguments
     into them, replays, and returns the static outputs, which the next replay
     overwrites; with `into` (a tree of static tensors) the graph writes its
-    result there instead, and the call returns `into`. `launches`: the
-    port's kernel launches of one replay."""
+    result there instead, and the call returns `into`. `recording`: the
+    capture's `Recording`; `calls`: the replays."""
 
     def __init__(self, fn, args, *, pool=None, into=None):
         device = tree_leaves(args)[0].device
@@ -139,82 +292,72 @@ class CapturedCall:
         warm = warm_up(run, device)
         self.out = tree_map(torch.empty_like, warm) if into is None else into
         self.graph = torch.cuda.CUDAGraph()
-        self.launches = _capture(self.graph, pool, run, self.out, device)
+        with capturing(self.graph, pool) as self.recording:
+            copy_tree_into(self.out, unaliased(run(), avoid=self.out))
+        torch.cuda.synchronize(device)
+        self.calls = 0
+
+    def launched(self) -> Counter:
+        """The port's kernel launches of every replay so far."""
+        return self.recording.launches(self.calls)
 
     def __call__(self, *args):
         copy_tree_into(self.args, args)
         self.graph.replay()
+        self.calls += 1
         return self.out
 
 
 class CapturedLoop:
     """`lax.while_loop(cond, body, state)` on the card: `body(state, *args)
-    -> state`, masked so that an extra replay leaves a stopped lane as it
-    is, captured once over static state buffers, and `cond(state, *args)`
-    -> a 0-dim bool ("any lane running") captured after it. A call copies
-    the state in, then replays the body while one host read of the flag
-    says so, once every `reads_every` replays, up to the host-known `cap`,
-    and returns the static state (overwritten by the next call). On the
-    CPU (or with `capture=False`), the same body runs eagerly
-    (`while_loop`). `replays` and `reads` count the bodies run and the
-    flags read; `launches`, the port's kernel launches of one body replay."""
+    -> state`, masked so that an extra body leaves a stopped lane as it is,
+    and `cond(state, *args)` -> a 0-dim bool ("any lane running"), captured
+    once as one graph: `cond`, then a WHILE node over `body`
+    (`device_while`, at most `cap` bodies a call). A call copies the state
+    in, replays once and returns the static state (overwritten by the next
+    call); the host reads nothing. On the CPU (or with `capture=False`), the
+    same body runs eagerly (`while_loop`). `replays`: the bodies run (on the
+    card, the node's device counter, read when asked); `reads`: the flags
+    read by the host."""
 
-    def __init__(self, body, state, cap, reads_every=1, *, cond, args=(), pool=None,
-                 capture=None):
-        self.body, self.cond = body, cond
-        self.cap, self.reads_every = int(cap), max(1, int(reads_every))
-        self.replays = self.reads = 0
-        self.launches = Counter()
+    def __init__(self, body, state, cap, *, cond, args=(), pool=None, capture=None):
+        self.body, self.cond, self.cap = body, cond, int(cap)
+        self.reads = self._replays = 0
         device = tree_leaves(state)[0].device
         self.captured = device.type == "cuda" if capture is None else capture
-        if not self.captured:
-            return
-        self.state = tree_map(torch.clone, state)
-        self.args = tree_map(torch.clone, args)
-        run_cond = lambda: cond(self.state, *self.args)
-        self.flag = torch.empty_like(warm_up(run_cond, device))
-        warm_up(lambda: body(self.state, *self.args), device)
-        self.cond_graph = torch.cuda.CUDAGraph()
-        _capture(self.cond_graph, pool, run_cond, self.flag, device)
+        self.graph = None
+        if self.captured:
+            loop = lambda st, *a: device_while(cond, body, st, *a, cap=self.cap)
+            self.graph = CapturedCall(loop, (state, *args), pool=pool)
 
-        def step():
-            copy_tree_into(self.state, unaliased(body(self.state, *self.args), avoid=self.state))
-            return run_cond()
-
-        self.body_graph = torch.cuda.CUDAGraph()
-        self.launches = _capture(self.body_graph, pool, step, self.flag, device)
+    @property
+    def replays(self) -> int:
+        if self.graph is None:
+            return self._replays
+        return self.graph.recording.runs()[0]
 
     def _read(self, flag):
         self.reads += 1
         return bool(flag)
 
     def __call__(self, state, *args):
-        if not self.captured:
-            def counted(st, *a):
-                self.replays += 1
-                return self.body(st, *a)
+        if self.graph is not None:
+            return self.graph(state, *args)
 
-            return while_loop(self.cond, counted, state, args, cap=self.cap,
-                              reads_every=self.reads_every, read=self._read)
-        copy_tree_into(self.state, state)
-        copy_tree_into(self.args, args)
-        for n in range(self.cap):
-            if n % self.reads_every == 0:
-                if n == 0:
-                    self.cond_graph.replay()
-                if not self._read(self.flag):
-                    break
-            self.body_graph.replay()
-            self.replays += 1
-        return self.state
+        def counted(st, *a):
+            self._replays += 1
+            return self.body(st, *a)
+
+        return while_loop(self.cond, counted, state, args, cap=self.cap, read=self._read)
 
 
 class GraphSet:
     """The captured pieces of one run (see the module docstring). `device`
     None or a CPU device, or `capture=False`: every piece runs eagerly.
-    `counts`: runs of each piece by name ("<name>" for a call, the body
-    replays of a loop), and "host_reads", the reads of a device flag.
-    `launches`: each captured piece's kernel launches a replay."""
+    `counts`: runs of each piece by name ("<name>" for a call, the body runs
+    of a loop), and "host_reads", the reads of a device flag, of which
+    `loop_reads` were a loop's (none on the card); `kernel_launches()`: the
+    port's kernel launches so far."""
 
     def __init__(self, device=None, capture=None):
         on_card = device is not None and torch.device(device).type == "cuda"
@@ -222,16 +365,41 @@ class GraphSet:
         if self.capture and not on_card:
             raise RuntimeError(f"CUDA graphs need a CUDA device, got {device}")
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
-        self.counts = Counter()
-        self.launches = {}
+        self._counts = Counter()
+        self.loop_reads = 0
         self._graphs = {}
+        self._loops = {}
+
+    @property
+    def counts(self) -> Counter:
+        """The runs of each piece and the host reads (a captured loop's body
+        runs read from the device)."""
+        out = self._counts.copy()
+        for name, g in self._loops.items():
+            if g.captured:
+                out[name] += g.replays
+        return out
+
+    def kernel_launches(self) -> Counter:
+        """The port's kernel launches so far: on the card those of every
+        replay of the set's graphs, counted by their `Recording`s; eagerly
+        the wrappers' counters (all the process's launches)."""
+        if not self.capture:
+            return _launch_counts()
+        out = Counter()
+        for g in self._graphs.values():
+            if isinstance(g, CapturedCall):
+                out += g.launched()
+        for g in self._loops.values():
+            out += g.graph.launched()
+        return out
 
     def any(self, flag) -> bool:
         """Whether any entry of the device tensor `flag` is set, by one host
         read; True, without a read, inside `no_host_sync()`."""
         if not host_sync_allowed():
             return True
-        self.counts["host_reads"] += 1
+        self._counts["host_reads"] += 1
         return bool(flag.any())
 
     def static(self, name, tree):
@@ -250,29 +418,30 @@ class GraphSet:
         """fn(*args): eagerly, or the replay of its graph `name` (captured
         at the first call; `into`: static buffers the graph writes its
         result to)."""
-        self.counts[name] += 1
+        self._counts[name] += 1
         with stage(name):
             if not self.capture:
                 return fn(*args)
             g = self._graphs.get(name)
             if g is None:
                 g = self._graphs[name] = CapturedCall(fn, args, pool=self.pool, into=into)
-                self.launches[name] = g.launches
             return g(*args)
 
-    def loop(self, name, cond, body, state, *args, cap, reads_every=1):
+    def loop(self, name, cond, body, state, *args, cap):
         """`while_loop` of `body` under `cond` (a `CapturedLoop` `name` on
         the card, captured at the first call)."""
         with stage(name):
-            g = self._graphs.get(name)
+            g = self._loops.get(name)
             if g is None:
-                g = CapturedLoop(body, state, cap, reads_every, cond=cond, args=args,
-                                 pool=self.pool, capture=self.capture)
+                g = CapturedLoop(body, state, cap, cond=cond, args=args, pool=self.pool,
+                                 capture=self.capture)
                 if self.capture:
-                    self._graphs[name] = g
-                    self.launches[name] = g.launches
+                    self._loops[name] = g
+            if self.capture:
+                return g(state, *args)
             replays, reads = g.replays, g.reads
             out = g(state, *args)
-            self.counts[name] += g.replays - replays
-            self.counts["host_reads"] += g.reads - reads
+            self._counts[name] += g.replays - replays
+            self._counts["host_reads"] += g.reads - reads
+            self.loop_reads += g.reads - reads
             return out

@@ -7,8 +7,9 @@ with feasibility restoration and stall damping both taken.
   `no_host_sync()` (the form a CUDA graph captures) under a dispatch mode
   that raises on every host read: no host read, and bit for bit the eager
   run; the inner loop as a `utils.graph_loop.CapturedLoop` (eager on the
-  CPU) reads its flag once every `reads_every` bodies and ends where the
-  eager loop does.
+  CPU: a host read before every body, where the card's WHILE node tests on
+  the device) ends where `device_while` and the loop at its cap inside
+  `no_host_sync()` end.
 * `build_chunked_converged_loop` at scp_per_dispatch 1 and 2 against JAX's
   `build_chunked_converged_loop`: per lane and step success, SCP
   iterations, scp_failed and QP iterations identical; X, U, u0 and the
@@ -28,7 +29,7 @@ from robust_nonlinear_mpc_torch.sim import closed_loop as tcl
 from robust_nonlinear_mpc_torch.solvers import fast_sls as tfs
 from robust_nonlinear_mpc_torch.solvers.soft_nlp import SOFT_SQP_OPTS, soft_nlp_solve
 from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
-from robust_nonlinear_mpc_torch.utils.graph_loop import CapturedLoop, GraphSet
+from robust_nonlinear_mpc_torch.utils.graph_loop import CapturedLoop, GraphSet, device_while
 from robust_nonlinear_mpc_torch.utils.host_sync import no_host_sync
 from robust_nonlinear_mpc_tpu.sim.closed_loop import build_chunked_converged_loop
 
@@ -89,14 +90,16 @@ def test_masked_round_and_loop_body_make_no_host_read(problem):
         masked = body(carry, dev, st.persist, pre)
     assert_same(masked, one)
     cap = int(opts.max_iter) - 1
-    loops = {k: CapturedLoop(body, carry, cap, k, cond=tfs._any_running)
-             for k in (1, 3)}
-    ends = {k: lp(carry, dev, st.persist, pre) for k, lp in loops.items()}
-    assert_same(ends[3], ends[1])
-    n, n3 = loops[1].replays, loops[3].replays
-    assert 1 < n < cap and loops[1].reads == n + 1
-    assert n <= n3 < cap and n3 % 3 == 0 and loops[3].reads == n3 // 3 + 1
-    assert int(ends[1].iteration_number[1]) == int(carry.iteration_number[1])
+    loop = CapturedLoop(body, carry, cap, cond=tfs._any_running)
+    args = (dev, st.persist, pre)
+    end = loop(carry, *args)
+    n = loop.replays
+    assert 1 < n < cap and loop.reads == n + 1
+    assert_same(device_while(tfs._any_running, body, carry, *args, cap=cap), end)
+    with no_host_sync(), HostReadProbe():
+        capped = device_while(tfs._any_running, body, carry, *args, cap=cap)
+    assert_same(capped, end)
+    assert int(end.iteration_number[1]) == int(carry.iteration_number[1])
 
 
 def test_masked_loop_matches_jax_chunked(problem):

@@ -9,9 +9,10 @@ backward kernel at the main path's shape, a ragged batch, a long horizon,
 the same edges (K3 also at narrow inputs); the until-convergence closed
 loop with every mitigation (chip_smoke phase 9a) on the card at B = 529 for
 one step against the CPU on its first 16 lanes; the RTI step captured as
-one CUDA graph against the eager step at B = 529 over 3 steps; the
-condensed IPM (torch ops) on the card against the CPU; the TF32 precision
-switches restoring the process's setting.
+one CUDA graph against the eager step at B = 529 over 3 steps, with the
+eager step's kernel launches; the condensed IPM (torch ops) on the card
+against the CPU; the TF32 precision switches restoring the process's
+setting; the WHILE nodes of captured loops (chip_smoke phase 2b).
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -142,8 +143,8 @@ def test_captured_step_matches_eager_at_529(smoke):
     from robust_nonlinear_mpc_torch import bench
 
     wl = bench.build_workload(B=529, n_warm=0, n_rep=3)
-    in_graph = smoke.captured_vs_eager("529", wl, wl.carry, wl.w_seq)
-    assert {"factor_predictor", "resolve"} <= set(in_graph)
+    launched = smoke.captured_vs_eager("529", wl, wl.carry, wl.w_seq)
+    assert all({"factor_predictor", "resolve"} <= set(step) for step in launched)
 
 
 def test_condensed_card_matches_cpu(smoke):
@@ -186,3 +187,12 @@ def test_tf32_switch_restores_the_global_flag(smoke):
     finally:
         numerics.set_tube_precision("highest")
         numerics.set_qp_direction_precision("highest")
+
+
+def test_device_while_exits_on_the_device(smoke):
+    # chip_smoke phase 2b: WHILE nodes exit at their device-given counts
+    # (nested too, with a GEMM and K1 in a body, in a shared pool), and
+    # solve_qp as one graph equals the eager solve with its launches
+    record = smoke.check_device_while()
+    assert record["a_runs"] == record["d_runs"] == [7, 23, 0, 100]
+    assert all(r["bit_for_bit"] and r["launches"] == r["eager_launches"] for r in record["e"])

@@ -24,7 +24,7 @@ TOP_LEVEL_MATPLOTLIB = re.compile(r"^(import\s+matplotlib\b|from\s+matplotlib\b)
 def test_port_has_sources():
     assert len(SOURCES) >= 15
     for name in ("fused_qp.cu", "fused_ipm.cu", "fused_response.cu", "fused_backward.cu",
-                 "newton.cuh"):
+                 "graph_while.cu", "newton.cuh"):
         assert (PORT / "csrc" / name).is_file(), name
     assert PORT / "tools" / "fused_bwd_bench.py" in SOURCES
     for rel in ("solvers/restoration.py", "models/pendulum.py", "models/quadrotor.py",
@@ -37,7 +37,8 @@ def test_port_has_sources():
                 "parallel/mesh.py", "parallel/distributed.py", "parallel/columns.py",
                 "entry.py", "tools/column_scaling.py", "tools/stage_profile.py",
                 "tools/bench_sweep.py", "tools/kernel_bench.py", "tools/dtype_deviation.py",
-                "tools/converged_probe.py", "tools/n60_probe.py", "tools/precompile.py"):
+                "tools/converged_probe.py", "tools/n60_probe.py", "tools/precompile.py",
+                "ops/graph_while.py", "utils/graph_loop.py"):
         assert PORT / rel in SOURCES, rel
     assert (PORT / "native" / "rnm_qp.cpp").is_file()
 
