@@ -80,24 +80,42 @@ before the result lines):
      of each step;
      (b) the full-mitigation Monte-Carlo validation of the rocket
      (main_monte_carlo_validation --converged --soft-fallback --restoration
-     --max-iter-scp 40 --qp-tol 1e-5 --stall-damping 0.5 --kkt fused),
-     float32, N = 15, B = 128 lanes from seed 0, T = 3 steps (the published
-     run has T = 10; 3 is the least at which the violation count checks a
-     state the controller produced), through CUDA graphs (scp_per_dispatch
-     2): the guarantee n_violation_steps_on_success == 0 over a check that
-     covers closed-loop states, tube containment 1 on successful solves,
-     the run captured and K1/K2 launched in every step's replays; seconds
-     of the seed, of each step and of every kind of graph replay (each
-     synchronized at its ends), each step's host reads, graph replays and
-     K1/K2 launches, the success flags against the published run's first 3
-     steps, and the device busy share of the last step's first SCP round
-     through its graphs (profiler). Phase 9b runs in a second process,
+     --max-iter-scp 40 --qp-tol 1e-5 --stall-damping 0.5 --kkt fused, the
+     command line of `expe/published_rows.py`), float32, N = 15, seed 0,
+     lanes 0..B-1 of the published 1024-lane draw (`GUARANTEE_B`), the
+     first T = 3 of its 10 steps (3 is the least at which the violation
+     count checks a state the controller produced), through CUDA graphs
+     (scp_per_dispatch 2): the guarantee n_violation_steps_on_success == 0
+     over a check that covers closed-loop states, tube containment 1 on
+     successful solves, the run captured and K1/K2 launched in every step's
+     replays; seconds of the seed, of each step and of every kind of graph
+     replay (each synchronized at its ends), the peak device memory, each
+     step's host reads, graph replays and K1/K2 launches, the comparison
+     with the published artifact lane by lane (success flags, SCP
+     iterations, tube misses, stored states; every violation and tube miss
+     attributed to its lane and step), and the last step's first SCP round
+     through its graphs (`profile_round`: its ms on the host clock and
+     between CUDA events, and under the profiler the K1/K2 records against
+     the launches the WHILE nodes' counters give, the busy share and the
+     idle time by gap length); (c) after (b), in the same process, the
+     quadrotor's full-mitigation row and the pendulum's row (`--converged`)
+     at `PAIR_B` lanes and T = 3 the same way, with (b)'s checks: the
+     pendulum with no violation on success and containment 1, the
+     quadrotor with at most 2 violation steps on success (its full row's
+     published count), each attributed (`chiprun_out/chip_smoke_9c.json`).
+     Phases 9b and 9c run in a second process,
      started first, which waits for this one's build (its graphs' WHILE
      nodes need the library) and then runs while this one runs the
      untimed phases 4, 5, 10-12 and 9a, so its seconds are contended; phases 3 and 6-8, which time,
      run after it, alone on the card. `--guarantee-alone steps|stages` runs
      phase 9b alone (after the build), with the seed and steps timed or
-     every stage timed;
+     every stage timed; `--guarantee-scaling 128,256,512,1024` the first
+     two steps of the rocket's row at each B (`chiprun_out/
+     chip_smoke_scaling.json`); `--published-rows rocket,quadrotor,pendulum
+     [--chunks C]` the three published rows at their full size, B = 1024,
+     T = 10, each held lane by lane against its artifact, its lanes to
+     settle re-run in float64 from the same draws, and its criteria
+     checked (`chiprun_out/chip_smoke_published_<system>.json`);
  10. the RTI step captured as one CUDA graph against the eager step on the
      card (run after phase 5, among the untimed phases): (a) B = 512,
      N = 15, float32, 3 steps from the bench seed in the default, the
@@ -158,8 +176,9 @@ before the result lines):
      step and solves/s of 10 replays in alternating pairs; TF32 must be on
      inside the switch's context and off after it. Record in
      `chiprun_out/chip_smoke_13.json`.
-Every launch counter is zeroed just before each bench run and before phase
-9b (in its own process), and read just after. A wrapper counts a launch
+Every launch counter is zeroed just before each bench run and before each
+guarantee row of phases 9b and 9c (in their own process), and read just
+after. A wrapper counts a launch
 recorded into a CUDA graph once, at capture; a replay launches without it.
 So a captured graph counts its launches outside loops once a replay, and
 those of a loop's body (an IPM iteration) once a body run, from the WHILE
@@ -170,7 +189,8 @@ counted so. Phases 10 and 9a require each captured step's launches to be
 the eager step's. The last lines are the kernels record, the nvidia-smi
 line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`, `13`)
 runs a subset (phases 1 and 2 always run) and then prints neither result
-line; so does `--guarantee-alone`.
+line; so do `--guarantee-alone`, `--guarantee-scaling` and
+`--published-rows`.
 """
 
 from __future__ import annotations
@@ -238,6 +258,13 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the reference's 200 steps): cut to keep the script inside its time limit
 LATENCY_STEPS = 50
 ALL_PHASES = range(3, 14)
+# phase 9b's lanes (the rocket) and phase 9c's (the quadrotor and the
+# pendulum), lanes 0..B-1 of the published 1024-lane draws. 9b at B = 1024
+# took 497.0 s beside the untimed phases and held the timed ones back by
+# about 180 s (the whole run 960.5 s; NVIDIA H100 80GB HBM3, 700 W), so it
+# stays at 128
+GUARANTEE_B = 128
+PAIR_B = 1024
 
 
 _START = time.perf_counter()
@@ -1429,26 +1456,44 @@ def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunke
             f"loop: max |diff| {worst:.2e}")
 
 
-GUARANTEE_FLAGS = dict(converged=True, soft_fallback=True, restoration=True, max_iter_scp=40,
-                       qp_tol=1e-5, stall_damping=0.5, kkt="fused")
-PUBLISHED_RUN = Path("artifacts/mc_validation_rocket_converged_tpu_f32_128_fullmit_r5.npz")
+# torch.profiler on a guarantee round (its graphs hold WHILE nodes): at
+# B = 128 it kept 2 of the round's 105 K1 records, at B = 256 all of them,
+# and at B = 512 the profiled round ended in an illegal memory access that
+# unprofiled rounds of the same state do not make (NVIDIA H100 80GB HBM3,
+# torch 2.11, CUDA 12.8); so it profiles only up to this B
+PROFILER_MAX_B = 256
 
 
-def profile_round(solver, st, x, graphs):
+def _union_ms(spans):
+    busy, end = 0.0, None
+    for s, e in sorted(spans):
+        busy += max(0.0, e - max(s, end if end is not None else s))
+        end = e if end is None else max(end, e)
+    return busy
+
+
+def profile_round(solver, st, x, graphs, profiler=False):
     """One masked SCP round of every lane (`sim.closed_loop._scp_round`, the
     undecided lanes running) from a step's entry state `st` (a
     `sim.closed_loop._ConvState`) at plant state x, through the run's CUDA
-    graphs `graphs`, as the step's first SCP round runs it: on the host
-    clock and again under the profiler (CUDA activity only), its ms, the
-    summed device kernel ms (kernels of a graph may overlap), and the busy
-    share of a round: the union of the kernels' device intervals over the
-    round's ms."""
+    graphs `graphs`, as the step's first SCP round runs it. Returns its ms
+    on the host clock and between CUDA events on the stream, its graph
+    replays and host reads, its K1/K2 launches (the graphs' counters, a
+    WHILE body's from the node's device counter) and the graph-busy share:
+    the union of the replays' device intervals (CUDA events around each
+    replay, `GraphSet.timeline`) over the round's event ms; the rest is
+    the card waiting for the host (its reads and enqueues). With `profiler`
+    the round runs once more under torch.profiler (CUDA activity only):
+    the K1/K2 kernel records it kept against the counters' launches
+    (`records_complete`), the summed kernel ms, the kernels' busy share
+    and the idle time between kernels by gap length."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from robust_nonlinear_mpc_torch.sim import closed_loop as cl
 
     max_scp = int(solver.opts.max_iter_scp)
+    k12 = lambda c: {k: c.get(k, 0) for k in ("factor_predictor", "resolve")}
 
     def one_round():
         s, xs = graphs.static("scp.state", st), graphs.static("scp.x", x)
@@ -1456,48 +1501,94 @@ def profile_round(solver, st, x, graphs):
         torch.cuda.synchronize()
 
     one_round()
+    counts, launched = graphs.counts, graphs.kernel_launches()
     t0 = time.perf_counter()
     one_round()
     round_ms = 1e3 * (time.perf_counter() - t0)
+    per_round = graphs.counts - counts
+    launches = k12(graphs.kernel_launches() - launched)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graphs.timeline = []
+    try:
+        start.record()
+        one_round()
+        stop.record()
+        torch.cuda.synchronize()
+        spans = [(start.elapsed_time(a), start.elapsed_time(b)) for a, b in graphs.timeline]
+    finally:
+        graphs.timeline = None
+    event_ms, graph_ms = start.elapsed_time(stop), _union_ms(spans)
+    out = {"round_ms": round_ms, "event_ms": event_ms, "graph_busy_ms": graph_ms,
+           "graph_busy_share": graph_ms / event_ms,
+           "graph_replays": sum(v for k, v in per_round.items() if k != "host_reads"),
+           "host_reads": per_round["host_reads"], "k1k2_launches": launches}
+    if not profiler:
+        return out
+    launched = graphs.kernel_launches()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_round()
-    device_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if ev.device_type == DeviceType.CUDA) / 1e3
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                       if ev.device_type == DeviceType.CUDA):
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return {"round_ms": round_ms, "device_kernel_ms": device_ms, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e3 / round_ms}
+    profiled_ms = 1e3 * (time.perf_counter() - t0)
+    profiled = k12(graphs.kernel_launches() - launched)
+    kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    records = {"factor_predictor": sum("factor_predictor_kernel" in ev.name for ev in kernels),
+               "resolve": sum("resolve_kernel" in ev.name for ev in kernels)}
+    intervals = sorted((ev.time_range.start, ev.time_range.end) for ev in kernels)
+    gaps = {"under_10us": 0.0, "10_to_100us": 0.0, "over_100us": 0.0}
+    end = None
+    for s, e in intervals:
+        if end is not None and s > end:
+            gap = s - end
+            gaps["under_10us" if gap < 10 else "10_to_100us" if gap < 100 else "over_100us"] += gap / 1e3
+        end = e if end is None else max(end, e)
+    busy_ms = _union_ms(intervals) / 1e3
+    out.update(profiled_ms=profiled_ms, kernel_records=len(kernels),
+               device_kernel_ms=sum(ev.self_device_time_total for ev in prof.key_averages()
+                                    if ev.device_type == DeviceType.CUDA) / 1e3,
+               device_busy_ms=busy_ms, device_busy_share=busy_ms / profiled_ms,
+               idle_ms_by_gap=gaps, k1k2_launches_profiled=profiled, k1k2_records=records,
+               records_complete=records == profiled)
+    return out
 
 
-def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
-    """Phase 9b: the published full-mitigation converged Monte-Carlo
-    validation of the rocket on the card (float32, N = 15), through the
-    driver a user runs, with T cut from 10 to 3: the seed's loops and every
-    piece of an SCP round as CUDA graphs, their loops WHILE nodes, with
-    host reads of a device flag between them (the restoration's and, once
-    every scp_per_dispatch = 2 rounds, whether every lane is decided). The
-    violation count checks (x_t, u_t) for t < T - 1 and x_0 is the draw, so
-    T = 3 is the least at which it checks a state the controller produced
-    (x_1); the tube containment checks x_1 and x_2. Fails unless the run
-    captured, K1/K2 launched in every step's replays, no successful step
-    violates a constraint, the count covered a closed-loop state, and
-    every successful step's tube contains the next state. Times the seed
-    and each step (`utils.stages`: "seed" and "step" only, which
-    synchronize the card once at each end; with `stages` every stage, each
-    synchronized at its ends: the seconds of each kind of graph replay),
-    reports each step's host reads, graph replays (a loop's: its body runs)
-    and K1/K2 launches (outside loops once a replay, in a loop's body once
-    a body run) from the driver's `.graphs.json`, and the busy share of the
-    last step's first SCP round.
-    Writes its record to chiprun_out/`out` and returns it."""
+def say_round(label, B, fr):
+    say(f"[{label}] a first SCP round at B={B}: {fr['round_ms']:.1f} ms on the host clock, "
+        f"{fr['event_ms']:.1f} ms between CUDA events, {fr['graph_replays']} graph replays "
+        f"and {fr['host_reads']} host reads, K1/K2 launches {fr['k1k2_launches']}; the graphs "
+        f"ran {fr['graph_busy_ms']:.1f} ms of it (graph-busy share "
+        f"{fr['graph_busy_share']:.4f})")
+    if "kernel_records" in fr:
+        say(f"[{label}] the round under torch.profiler ({fr['profiled_ms']:.1f} ms): "
+            f"{fr['kernel_records']} kernel records, K1/K2 records {fr['k1k2_records']} against "
+            f"the counters' launches {fr['k1k2_launches_profiled']} (complete: "
+            f"{fr['records_complete']}), device kernels {fr['device_kernel_ms']:.1f} ms summed, "
+            f"busy {fr['device_busy_ms']:.1f} ms (their union), busy share "
+            f"{fr['device_busy_share']:.4f} of the profiled round, idle ms by gap "
+            + json.dumps({k: round(v, 2) for k, v in fr["idle_ms_by_gap"].items()}))
+
+
+def mc_row(system, B, T, chunks=1, stages=False, profile=False, extra=()):
+    """A published guarantee row (`expe/published_rows.py`) through the
+    Monte-Carlo driver's command line (`main_monte_carlo_validation.main`)
+    on the card, float32, at B lanes (below 1024: lanes 0..B-1 of the
+    published 1024-lane draw, so lane b is the published lane b) and T
+    steps of the published 10-step draw. Times the seed and each step
+    (`utils.stages`: "seed" and "step" only, which synchronize the card at
+    their ends; with `stages` every stage: the seconds of each kind of
+    graph replay) and reads the peak device memory, each step's host
+    reads, graph replays (a loop's: its body runs) and K1/K2 launches
+    (outside loops once a replay, in a loop's body once a body run) from
+    the driver's `.graphs.json`; `profile`: and the first SCP round of the
+    last step (`profile_round`). Returns (the artifact's path, the record),
+    the record holding the comparison with the published artifact
+    (`published_rows.compare`)."""
     from robust_nonlinear_mpc_torch.expe import main_monte_carlo_validation as mc
+    from robust_nonlinear_mpc_torch.expe import published_rows as pr
     from robust_nonlinear_mpc_torch.sim import closed_loop as cl
     from robust_nonlinear_mpc_torch.utils.stages import timed
 
     mc.FOLDER = str(OUT_DIR / "monte_carlo_validation")
+    lanes = [] if B >= pr.SCENARIOS else ["--lanes", ",".join(map(str, range(B)))]
     entry = {}
     until_converged = cl._scp_until_converged
 
@@ -1507,13 +1598,14 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
         entry.update(solver=solver, st=tree_map(torch.clone, st), x=x.clone(), graphs=graphs)
         return until_converged(solver, st, x, per_read, graphs)
 
-    cl._scp_until_converged = keep_entry
+    if profile:
+        cl._scp_until_converged = keep_entry
     bench.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         with timed(None if stages else ("seed", "step")) as rec:
-            path = mc.generate("rocket", scenarios=B, steps=T, device="cuda", seed=0,
-                               **GUARANTEE_FLAGS)
+            path = mc.main(pr.argv(system, steps=T, chunks=chunks, extra=[*lanes, *extra]))
     finally:
         cl._scp_until_converged = until_converged
     wall = time.perf_counter() - t0
@@ -1527,70 +1619,218 @@ def guarantee_mode(B=128, T=3, stages=False, out="chip_smoke_guarantee.json"):
     succ = r["success_mask"].astype(bool)
     # the lane-steps the violation count covers: solve t succeeded and solve
     # t - 1 (which predicted the tube around x_t) too, for t < T - 1
-    covered = succ[:, :-1] & np.concatenate([np.ones((B, 1), bool), succ[:, : T - 2]], axis=1)
+    covered = succ[:, :-1] & np.concatenate([np.ones((len(succ), 1), bool), succ[:, : T - 2]],
+                                            axis=1)
     scp = r["scp_iters"]
     step_s = rec["step"]
     res.update(
-        B=B, T=T, seconds=wall, stages_timed=stages, seed_s=sum(rec["seed"]), step_s=step_s,
-        s_per_step=float(np.mean(step_s)), launches=launches,
+        system=system, B=len(succ), T=T, chunks=chunks, seconds=wall, stages_timed=stages,
+        seed_s=rec["seed"], step_s=step_s, launches=launches,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
         violation_lane_steps_checked=int(covered.sum()),
         closed_loop_lane_steps_checked=int(covered[:, 1:].sum()),
         scp_iters_mean=float(scp.mean()), scp_iters_max=int(scp.max()),
         scp_lane_iterations=int(scp.sum()),
         captured=graphs["captured"], scp_per_dispatch=graphs["scp_per_dispatch"],
-        seed_host_reads=graphs["seed_host_reads"][0],
-        seed_graph_replays=graphs["seed_graph_replays"][0],
+        seed_host_reads=graphs["seed_host_reads"], seed_graph_replays=graphs["seed_graph_replays"],
         host_reads_per_step=graphs["host_reads_per_step"],
         graph_replays_per_step=graphs["graph_replays_per_step"],
         graph_replays_by_piece=graphs["graph_replays_by_piece"],
         k1k2_launches_per_step=[[c.get("factor_predictor", 0), c.get("resolve", 0)]
                                 for c in graphs["kernel_launches_per_step"]],
+        comparison=pr.compare(path),
     )
     if stages:
         res.update(stages_s={k: sum(v) for k, v in rec.items()},
                    stage_calls={k: len(v) for k, v in rec.items()})
-    say(f"[9b] rocket full mitigation B={B} T={T} f32 on the card in {wall:.1f} s "
-        f"(seed {res['seed_s']:.1f} s, steps {[round(v, 2) for v in step_s]} s, "
-        f"{'every stage' if stages else 'seed and steps'} timed): "
+    if profile:
+        res["first_round"] = profile_round(entry["solver"], entry["st"], entry["x"],
+                                           entry["graphs"], profiler=B <= PROFILER_MAX_B)
+    return path, res
+
+
+def say_row(label, res):
+    """Print a row's record (`mc_row`)."""
+    keys = ("success_rate", "n_violation_steps_on_success", "n_violation_steps",
+            "tube_containment_rate", "worst_tube_margin", "n_failed_inner",
+            "n_failed_unconverged", "n_failed_scenarios", "mean_cost")
+    say(f"[{label}] {res['system']} B={res['B']} T={res['T']} chunks={res['chunks']} f32 on the "
+        f"card in {res['seconds']:.1f} s (seed {[round(v, 2) for v in res['seed_s']]} s, steps "
+        f"{[round(v, 2) for v in res['step_s']]} s, "
+        f"{'every stage' if res['stages_timed'] else 'seed and steps'} timed; peak device "
+        f"memory {res['peak_memory_bytes'] / 2**30:.2f} GiB): "
         + json.dumps({k: res[k] for k in keys})
         + f", violation check over {res['violation_lane_steps_checked']} lane-steps "
         f"({res['closed_loop_lane_steps_checked']} at a closed-loop state), SCP iterations "
-        f"mean {res['scp_iters_mean']:.2f} max {res['scp_iters_max']}, launches {launches}")
-    say(f"[9b] CUDA graphs: {res['captured']}; per step host reads "
+        f"mean {res['scp_iters_mean']:.2f} max {res['scp_iters_max']}")
+    say(f"[{label}] CUDA graphs: {res['captured']}; per step host reads "
         f"{res['host_reads_per_step']}, graph replays {res['graph_replays_per_step']}, "
         f"K1/K2 launches {res['k1k2_launches_per_step']}; seed host reads "
         f"{res['seed_host_reads']}, replays {res['seed_graph_replays']} (scp_per_dispatch "
         f"{res['scp_per_dispatch']}); replays by piece {res['graph_replays_by_piece']}")
-    if stages:
-        say("[9b] stage s (calls): " + ", ".join(
+    if res["stages_timed"]:
+        say(f"[{label}] stage s (calls): " + ", ".join(
             f"{k} {v:.2f} ({res['stage_calls'][k]})" for k, v in res["stages_s"].items()))
+    c = res["comparison"]
+    say(f"[{label}] against the published row, lane by lane: success flags differing "
+        f"{c['success_flags_differing']} of {c['B'] * c['T']} (per step "
+        f"{c['success_flags_differing_per_step']}; port only {c['success_port_only']}, "
+        f"published only {c['success_published_only']}); on the {c['both_succeeded']} lane-steps "
+        f"both solved: SCP iterations equal on {c['scp_iters_equal_on_both']} (mean |diff| "
+        f"{c['scp_iters_mean_abs_diff_on_both']:.3f}), scp_failed differing "
+        f"{c['scp_failed_differing_on_both']}; tube-miss lane-steps {c['tube_miss_lane_steps']} "
+        f"(published {c['published_tube_miss_lane_steps']}, on both "
+        f"{c['tube_miss_lane_steps_on_both']}); stored states where both solved every step "
+        f"before: max |diff| {c['states_max_abs_diff']:.3e}, median "
+        f"{c['states_median_abs_diff']:.3e} over {c['states_compared']}")
+    for a in c["violations"] + c["tube_misses"]:
+        say(f"[{label}] {a['kind']} lane {a['lane']} step {a['step']}: excess {a['excess']:.4g}, "
+            f"SCP iterations {a['scp_iters']} (stall-damped {a['stall_damped']}); the published "
+            f"lane: {json.dumps(a['published'])}")
+
+
+def check_row(label, res, max_violations=0, containment=True):
+    """Phase 9b's checks of a guarantee row: run as CUDA graphs, K1/K2 in
+    every step's replays (every chunk's), at most `max_violations`
+    violation steps on successful solves (each attributed), a violation
+    check that covered a state the closed loop produced and, with
+    `containment`, every successful step's tube containing the next state."""
     if not res["captured"]:
-        fail("[9b] the guarantee run did not run as CUDA graphs")
-    if min(launches["factor_predictor"], launches["resolve"]) <= 0 or \
+        fail(f"[{label}] the {res['system']} row did not run as CUDA graphs")
+    if min(res["launches"]["factor_predictor"], res["launches"]["resolve"]) <= 0 or \
             min(min(k) for k in res["k1k2_launches_per_step"]) <= 0:
-        fail(f"[9b] the guarantee run did not launch K1/K2 in every step: {launches}, "
-             f"per step {res['k1k2_launches_per_step']}")
-    if res["n_violation_steps_on_success"] != 0:
-        fail(f"[9b] {res['n_violation_steps_on_success']} violation steps on successful solves")
+        fail(f"[{label}] the {res['system']} row did not launch K1/K2 in every step: "
+             f"{res['launches']}, per step {res['k1k2_launches_per_step']}")
+    n_viol = res["n_violation_steps_on_success"]
+    if n_viol > max_violations or len(res["comparison"]["violations"]) != n_viol:
+        fail(f"[{label}] {res['system']}: {n_viol} violation steps on successful solves "
+             f"(at most {max_violations}; {len(res['comparison']['violations'])} attributed)")
     if res["closed_loop_lane_steps_checked"] <= 0:
-        fail("[9b] the violation check covered no state the closed loop produced")
-    if not res["tube_containment_rate"] == 1.0:
-        fail(f"[9b] tube containment on successful solves {res['tube_containment_rate']} < 1")
-    if PUBLISHED_RUN.is_file():
-        pub = np.load(PUBLISHED_RUN, allow_pickle=True)["success_mask"][:B, :T]
-        res["success_flags_differing_from_published"] = int((pub != succ).sum())
-        say(f"[9b] success flags of the first {T} steps that differ from {PUBLISHED_RUN.name}: "
-            f"{res['success_flags_differing_from_published']} of {pub.size} (same draws; "
-            "the published run is float32 on a TPU)")
-    res["first_round"] = profile_round(entry["solver"], entry["st"], entry["x"],
-                                       entry["graphs"])
-    fr = res["first_round"]
-    say(f"[9b] step {T - 1}'s first SCP round at B={B}: {fr['round_ms']:.1f} ms, device "
-        f"kernels {fr['device_kernel_ms']:.1f} ms summed, busy {fr['device_busy_ms']:.1f} ms "
-        f"(their union), busy share {fr['device_busy_share']:.4f}")
+        fail(f"[{label}] the violation check covered no state the closed loop produced")
+    if containment and not res["tube_containment_rate"] == 1.0:
+        fail(f"[{label}] {res['system']}: tube containment on successful solves "
+             f"{res['tube_containment_rate']} < 1")
+
+
+def guarantee_mode(B=GUARANTEE_B, T=3, stages=False, out="chip_smoke_guarantee.json"):
+    """Phase 9b: the published full-mitigation converged Monte-Carlo
+    validation of the rocket on the card (float32, N = 15), through the
+    driver a user runs (`mc_row`), at B lanes with T cut from 10 to 3: the
+    seed's loops and every piece of an SCP round as CUDA graphs, their loops
+    WHILE nodes, with host reads of a device flag between them (the
+    restoration's and, once every scp_per_dispatch = 2 rounds, whether
+    every lane is decided). The violation count checks (x_t, u_t) for
+    t < T - 1 and x_0 is the draw, so T = 3 is the least at which it checks
+    a state the controller produced (x_1); the tube containment checks x_1
+    and x_2. Fails unless `check_row` passes (no violation on success,
+    containment 1). Reports the seconds, host reads, replays and launches
+    of `mc_row`, the success flags against the published run's first 3
+    steps and the last step's first SCP round (`profile_round`).
+    Writes its record to chiprun_out/`out` and returns it."""
+    _, res = mc_row("rocket", B, T, stages=stages, profile=True)
+    say_row("9b", res)
+    check_row("9b", res)
+    say_round("9b", B, res["first_round"])
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / out).write_text(json.dumps(res, indent=1))
     return res
+
+
+def published_pair(B=PAIR_B, T=3, out="chip_smoke_9c.json"):
+    """Phase 9c (after 9b, in its worker): the quadrotor's full-mitigation
+    row and the pendulum's row (`--converged`) at B lanes, T cut from 10 to
+    3 as 9b's, with 9b's checks: run as CUDA graphs with K1/K2 in every
+    step, the pendulum without a violation on a successful solve and with
+    containment 1, the quadrotor with at most 2 (the full row's published
+    count), each attributed to its lane and step, the violation check over
+    closed-loop states, and the success flags against the published
+    artifact's first 3 steps."""
+    record = {}
+    for system, max_viol, contained in (("quadrotor", 2, False), ("pendulum", 0, True)):
+        _, res = mc_row(system, B, T)
+        say_row("9c", res)
+        check_row("9c", res, max_violations=max_viol, containment=contained)
+        record[system] = res
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out).write_text(json.dumps(record, indent=1))
+    return record
+
+
+def guarantee_scaling(batches, out="chip_smoke_scaling.json"):
+    """`--guarantee-scaling`: the first two steps of the rocket's published
+    row (the driver's least T) at each B in `batches` (lanes 0..B-1 of the
+    published draw), with the seed's and the steps' seconds, the peak
+    device memory, host reads and replays, and the last step's first SCP
+    round (`profile_round`) at that B."""
+    record = []
+    for B in batches:
+        _, res = mc_row("rocket", B, 2, profile=True)
+        say_row("scaling", res)
+        say_round("scaling", B, res["first_round"])
+        record.append(res)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / out).write_text(json.dumps(record, indent=1))
+    return record
+
+
+def published_rows(systems, chunks=1):
+    """`--published-rows`: each system's published row at its full size
+    (B = 1024, T = 10) through the driver's command line, held lane by lane
+    against its artifact (`mc_row`, `published_rows.compare`); the lanes
+    that `published_rows.settle_lanes` names re-run from the same draw in
+    float64 on the card (`--dtype float64 --lanes`), which settles whether
+    rounding explains them. Then the row's criteria: success within 0.02 of
+    the published rate; the rocket and the pendulum without a violation on
+    a successful solve, the pendulum with success and containment 1; every
+    lane to settle settled by float64 (no violation on success and no tube
+    miss there); run as CUDA graphs with K1/K2 in every step of every
+    chunk. Writes chiprun_out/chip_smoke_published_<system>.json; fails
+    after the last row if a criterion failed."""
+    from robust_nonlinear_mpc_torch.expe import published_rows as pr
+
+    failed = []
+    for system in systems:
+        row = pr.ROWS[system]
+        _, res = mc_row(system, pr.SCENARIOS, pr.STEPS, chunks=chunks)
+        say_row("rows", res)
+        cmp = res["comparison"]
+        settle = pr.settle_lanes(cmp)
+        res["settle_lanes"] = settle
+        if settle:
+            # lane b of the float64 run is settle[b]
+            _, f64 = mc_row(system, pr.SCENARIOS, pr.STEPS,
+                            extra=["--lanes", ",".join(map(str, settle)), "--dtype", "float64"])
+            c64 = f64["comparison"]
+            kept = [lane for lane in settle
+                    if not any(a["lane"] == lane for a in c64["violations"] + c64["tube_misses"])]
+            res["float64"] = {"lanes": settle, "guarantee_kept": kept, "seconds": f64["seconds"],
+                              "violations": c64["violations"], "tube_misses": c64["tube_misses"],
+                              "success_rate": f64["success_rate"]}
+            say(f"[rows] {system}: float64 re-run of lanes {settle} from the same draws in "
+                f"{f64['seconds']:.1f} s: guarantee kept on {kept}; violations "
+                f"{[(a['lane'], a['step'], round(a['excess'], 6)) for a in c64['violations']]}, "
+                f"tube misses {[(a['lane'], a['step'], round(a['excess'], 6)) for a in c64['tube_misses']]}")
+        criteria = {
+            "success_within_0.02": abs(res["success_rate"] - row.success_rate) <= 0.02,
+            "captured": bool(res["captured"]),
+            "k1k2_every_step": min(min(k) for k in res["k1k2_launches_per_step"]) > 0,
+            "settled_by_float64": not settle or res["float64"]["guarantee_kept"] == settle,
+            "violations_attributed": len(cmp["violations"]) == res["n_violation_steps_on_success"],
+        }
+        if system != "quadrotor":
+            criteria["no_violation_on_success"] = res["n_violation_steps_on_success"] == 0
+        if system == "pendulum":
+            criteria["success_1"] = res["success_rate"] == 1.0
+            criteria["containment_1"] = res["tube_containment_rate"] == 1.0
+        res["criteria"] = criteria
+        say(f"[rows] {system}: published success {row.success_rate:.4f}, violations on success "
+            f"{row.violations_on_success}, containment {row.containment:.4f}; criteria "
+            + json.dumps(criteria))
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"chip_smoke_published_{system}.json").write_text(json.dumps(res, indent=1))
+        failed += [f"{system}: {k}" for k, ok in criteria.items() if not ok]
+    if failed:
+        fail(f"[rows] criteria not met: {failed}")
 
 
 COMPARE_N, COMPARE_T = 15, 4
@@ -2041,6 +2281,15 @@ def main(argv=None):
     ap.add_argument("--guarantee-alone", choices=["steps", "stages"],
                     help="run only phase 9b, alone on the card after the build, with the "
                          "seed and the steps timed or every stage timed; no result lines")
+    ap.add_argument("--published-rows", default=None,
+                    help="comma-separated systems (rocket, quadrotor, pendulum): run their "
+                         "published guarantee rows at B = 1024, T = 10 after the build, held "
+                         "lane by lane against the artifacts; no result lines")
+    ap.add_argument("--chunks", type=int, default=1,
+                    help="--published-rows: the driver's --chunks")
+    ap.add_argument("--guarantee-scaling", default=None,
+                    help="comma-separated B: one step of the rocket's published row at each "
+                         "B after the build; no result lines")
     ap.add_argument("--guarantee-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--compare-reference", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
@@ -2054,6 +2303,7 @@ def main(argv=None):
         # for the main process's build before the timed run
         cuda_lib.build_extension()
         guarantee_mode(stages=True)
+        published_pair()
         return 0
     if args.parallel_rank is not None or args.entry_worker:
         # phase 12's workers run at a lower priority: phase 9b's host-bound
@@ -2073,11 +2323,18 @@ def main(argv=None):
         torch.set_num_threads(2)
         compare_run("cpu", "riccati", out=COMPARE_REFERENCE)
         return 0
-    if args.guarantee_alone:
+    if args.guarantee_alone or args.published_rows or args.guarantee_scaling:
         say(f"[1] device {torch.cuda.get_device_name(0)}, nvidia-smi: {bench.gpu_identity()[2]}")
+        t0 = time.perf_counter()
         cuda_lib.build_extension()
-        guarantee_mode(stages=args.guarantee_alone == "stages",
-                       out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
+        say(f"[2] built the kernels in {time.perf_counter() - t0:.1f} s")
+        if args.guarantee_scaling:
+            guarantee_scaling([int(b) for b in args.guarantee_scaling.split(",")])
+        if args.guarantee_alone:
+            guarantee_mode(stages=args.guarantee_alone == "stages",
+                           out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
+        if args.published_rows:
+            published_rows(args.published_rows.split(","), chunks=args.chunks)
         return 0
     run = set(ALL_PHASES) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
     name, limit_w, smi_line = bench.gpu_identity()

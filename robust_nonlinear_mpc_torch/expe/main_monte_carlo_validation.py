@@ -15,10 +15,16 @@ driver's order, so lane b here is lane b of a JAX run. Reported:
 
 The statistics, the artifact's keys and its tag are the JAX driver's; the
 closed loop's host reads and CUDA graph replays a step go beside it
-(`graph_record`, `<artifact>.graphs.json`). The
+(`graph_record`, `<artifact>.graphs.json`), and so do each lane-step's
+constraint and tube margins and the whole state trajectory
+(`<artifact>.lanes.npz`, which the artifact keeps to 64 lanes). The
 type is float32 on the card and float64 on the CPU, as the JAX driver runs
 float32 on the TPU and float64 on the CPU; `--kkt` applies in both types
-(the JAX driver applies it in float32 only).
+(the JAX driver applies it in float32 only). `--dtype` changes the type
+and keeps the settings of the device's own type: `--dtype float64` on the
+card runs a float32 row's settings in float64, which tells a lane's
+rounding from a fault of the solver. `--lanes` runs only some lanes of the
+B-lane draw (each lane's result does not depend on the others).
 
 The mesh is one process per device (`parallel/mesh.py`): on the CPU,
 `--host-devices W` starts W gloo processes (the counterpart of the JAX
@@ -97,12 +103,13 @@ def make_problem(system, device, dtype):
 def configure(solver, *, recycle=False, streaming=False, warm_qp=False, qp_iters=15,
               kkt="riccati", converged=False, adaptive=False, scp_eps=None,
               max_iter_scp=None, soft_fallback=False, restoration=False, qp_tol=None,
-              stall_damping=0.0):
-    """The JAX driver's option edits, in its order."""
+              stall_damping=0.0, f32=None):
+    """The JAX driver's option edits, in its order: those of a float32 run
+    if `f32` (default: if the solver is float32), else of a float64 run."""
     from robust_nonlinear_mpc_torch.ops.qp_ipm import IPMOptions
     from robust_nonlinear_mpc_torch.solvers.sqp import SQPOptions
 
-    f32 = solver.dtype == torch.float32
+    f32 = solver.dtype == torch.float32 if f32 is None else bool(f32)
     o = solver.opts._replace(verbose=False)
     if converged:
         # until convergence (the reference default): the SCP delta criterion
@@ -148,19 +155,30 @@ def draws(m, x_center, x_spread, B, steps, seed):
     return x0s, Ws
 
 
+def margins(logs, m):
+    """Per lane and step t < T - 1 (numpy, from host logs): the tube margin
+    backoff_x[t, 1] - |x_{t+1} - nominal_x[t, 1]| (B, T-1, nx; NaN: no
+    tube) and the worst closed-loop constraint margin max(G [x_t; u_t] - g)
+    (B, T-1; > 0 violates)."""
+    xs = np.asarray(logs["state_trajectory"])           # (B, T, nx)
+    us = np.asarray(logs["input_trajectory"])           # (B, T-1, nu)
+    nom = np.asarray(logs["nominal_x"])                 # (B, T, N+1, nx)
+    bo = np.asarray(logs["backoff_x"])                  # (B, T, N+1, nx)
+    # one-step tube containment: |x_{t+1} - nominal_x[t, 1]| <= backoff_x[t, 1]
+    tube = bo[:, :-1, 1] - np.abs(xs[:, 1:] - nom[:, :-1, 1])
+    Gm = m.G.detach().cpu().numpy().astype(float)
+    gv = m.g.detach().cpu().numpy().astype(float).reshape(-1)
+    z = np.concatenate([xs[:, :-1], us], axis=-1)
+    return tube, (z @ Gm.T - gv).max(axis=-1)
+
+
 def statistics(logs, stats, m, steps):
     """The JAX driver's statistics from host logs (numpy, batch-leading) and
     the aggregate: the artifact's fields, without the run's settings."""
     B = logs["success"].shape[0]
     succ = np.asarray(logs["success"]).astype(bool)     # (B, T)
     xs = np.asarray(logs["state_trajectory"])           # (B, T, nx)
-    us = np.asarray(logs["input_trajectory"])           # (B, T-1, nu)
-    nom = np.asarray(logs["nominal_x"])                 # (B, T, N+1, nx)
-    bo = np.asarray(logs["backoff_x"])                  # (B, T, N+1, nx)
-
-    # one-step tube containment: |x_{t+1} - nominal_x[t, 1]| <= backoff_x[t, 1]
-    dev = np.abs(xs[:, 1:] - nom[:, :-1, 1])
-    margin = bo[:, :-1, 1] - dev                        # NaN: no tube
+    margin, worst_per_step = margins(logs, m)           # tube margin NaN: no tube
     ok_step = succ[:, :-1] & np.isfinite(margin).all(axis=-1)
     contained = margin >= -1e-6
     containment_rate = float(contained[ok_step].mean()) if ok_step.any() else float("nan")
@@ -170,11 +188,7 @@ def statistics(logs, stats, m, steps):
     cont_cold = contained[:, :cold][ok_step[:, :cold]]
     cont_steady = contained[:, cold:][ok_step[:, cold:]]
 
-    # closed-loop constraint margins G [x; u] - g per scenario and step
-    Gm = m.G.detach().cpu().numpy().astype(float)
-    gv = m.g.detach().cpu().numpy().astype(float).reshape(-1)
-    z = np.concatenate([xs[:, :-1], us], axis=-1)
-    worst_per_step = (z @ Gm.T - gv).max(axis=-1)       # (B, T-1)
+    # closed-loop constraint margins: worst of G [x; u] - g per scenario and step
     viol_step = worst_per_step > 0
     # solve t produced u_t; solve t-1 predicted the tube containing x_t
     prev_ok = np.concatenate([np.ones((B, 1), bool), succ[:, : max(steps - 2, 0)]], axis=1)
@@ -242,6 +256,28 @@ def graph_record(records, scp_per_dispatch):
     }
 
 
+def run_settings(scenarios, steps, *, recycle=False, adaptive=False, converged=False,
+                 restoration=False, soft_fallback=False, qp_tol=None, stall_damping=0.0,
+                 qp_iters=15, max_iter_scp=None, streaming=False, warm_qp=False, **_):
+    """The run's settings as the artifact records them (the JAX driver's
+    fields); the options that it does not record are ignored."""
+    return {
+        "recycle": bool(recycle),
+        "adaptive": bool(adaptive),
+        "converged": bool(converged),
+        "restoration": bool(restoration),
+        "soft_fallback": bool(soft_fallback),
+        "qp_tol": float(qp_tol) if qp_tol is not None else -1.0,
+        "stall_damping": float(stall_damping),
+        "qp_iters": int(qp_iters),
+        "max_iter_scp_override": int(max_iter_scp) if max_iter_scp is not None else -1,
+        "streaming": bool(streaming),
+        "warm_qp": bool(recycle and warm_qp),
+        "scenarios": int(scenarios),
+        "steps": int(steps),
+    }
+
+
 def tag_of(system, recycle, streaming, warm_qp, converged, soft_fallback, restoration,
            stall_damping, qp_tol, max_iter_scp, adaptive):
     return (
@@ -264,11 +300,16 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
              kkt="riccati", converged=False, adaptive=False,
              scp_eps=None, max_iter_scp=None, chunks=1, scp_per_dispatch=2,
              soft_fallback=False, restoration=False, qp_tol=None,
-             stall_damping=0.0, mesh=None):
+             stall_damping=0.0, mesh=None, dtype=None, lanes=None, draw_steps=None):
     """Run the validation and save its artifact; returns the npz path. With
     a scenario `mesh` every rank calls this with the same arguments and
     rolls out its block of each chunk; rank 0 writes the artifact and
-    returns its path, the other ranks return None."""
+    returns its path, the other ranks return None. `dtype` (default float32
+    on the card, float64 on the CPU) keeps the settings of the device's own
+    type; `lanes` (indices into the `scenarios`-lane draw) runs only those
+    lanes, in one chunk on one device; `draw_steps` (>= steps) draws the
+    disturbances of a run that long and runs its first `steps` steps, so
+    that a cut run's lane b is lane b of the full run."""
     from robust_nonlinear_mpc_torch.expe._common import save_results
     from robust_nonlinear_mpc_torch.parallel.mc import MCStats, run_monte_carlo
     from robust_nonlinear_mpc_torch.sim.closed_loop import (
@@ -278,13 +319,21 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
     from robust_nonlinear_mpc_torch.utils.device import checked_device
 
     device = checked_device(device)
-    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    own = torch.float32 if device.type == "cuda" else torch.float64
+    dtype = own if dtype is None else dtype
     m, solver, x_center, x_spread = make_problem(system, device, dtype)
     configure(solver, recycle=recycle, streaming=streaming, warm_qp=warm_qp, qp_iters=qp_iters,
               kkt=kkt, converged=converged, adaptive=adaptive, scp_eps=scp_eps,
               max_iter_scp=max_iter_scp, soft_fallback=soft_fallback,
-              restoration=restoration, qp_tol=qp_tol, stall_damping=stall_damping)
+              restoration=restoration, qp_tol=qp_tol, stall_damping=stall_damping,
+              f32=own == torch.float32)
 
+    if steps < 2:
+        # as the JAX driver's statistics, which fail on an empty reduction
+        raise ValueError(f"steps={steps}: the statistics check (x_t, u_t) for t < steps - 1, "
+                         "so a run needs at least 2 steps")
+    if lanes is not None and (mesh is not None or int(chunks) != 1):
+        raise ValueError("--lanes runs in one chunk on one device")
     n_dev = 1 if mesh is None else mesh.size
     chunks = max(1, int(chunks))
     B = (scenarios // (n_dev * chunks)) * n_dev * chunks
@@ -294,8 +343,15 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
             f"the per-chunk shard would be empty. Raise --scenarios, lower "
             f"--chunks, or (on CPU) lower --host-devices."
         )
+    draw_steps = steps if draw_steps is None else int(draw_steps)
+    if draw_steps < steps:
+        raise ValueError(f"draw_steps={draw_steps} < steps={steps}")
+    x0s_h, Ws_h = draws(m, x_center, x_spread, B, draw_steps, seed)
+    Ws_h = Ws_h[:, :steps]
+    if lanes is not None:
+        lanes = np.asarray(lanes, dtype=np.int64)
+        x0s_h, Ws_h, B = x0s_h[lanes], Ws_h[lanes], lanes.size
     Bc = B // chunks
-    x0s_h, Ws_h = draws(m, x_center, x_spread, B, steps, seed)
 
     if converged and scp_per_dispatch > 0:
         rollout = build_chunked_converged_loop(solver, steps, scp_per_dispatch=scp_per_dispatch)
@@ -326,22 +382,15 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
 
     results = {
         "system": system,
-        "recycle": bool(recycle),
-        "adaptive": bool(adaptive),
-        "converged": bool(converged),
-        "restoration": bool(restoration),
-        "soft_fallback": bool(soft_fallback),
-        "qp_tol": float(qp_tol) if qp_tol is not None else -1.0,
-        "stall_damping": float(stall_damping),
-        "qp_iters": int(qp_iters),
-        "max_iter_scp_override": int(max_iter_scp) if max_iter_scp is not None else -1,
-        "streaming": bool(streaming),
-        "warm_qp": bool(recycle and warm_qp),
-        "scenarios": B,
-        "steps": steps,
+        **run_settings(B, steps, recycle=recycle, adaptive=adaptive, converged=converged,
+                       restoration=restoration, soft_fallback=soft_fallback, qp_tol=qp_tol,
+                       stall_damping=stall_damping, qp_iters=qp_iters,
+                       max_iter_scp=max_iter_scp, streaming=streaming, warm_qp=warm_qp),
         "devices": int(n_dev),
         **statistics(logs, stats, m, steps),
     }
+    if lanes is not None:
+        results["lanes"] = lanes.astype(np.int32)
     if mesh is not None and mesh.rank != 0:
         return None
     r = results
@@ -363,8 +412,15 @@ def generate(system="rocket", scenarios=256, steps=10, device="cuda", seed=0,
           f"(rank 0's lanes; scp_per_dispatch {scp_per_dispatch})")
     tag = tag_of(system, recycle, streaming, warm_qp, converged, soft_fallback, restoration,
                  stall_damping, qp_tol, max_iter_scp, adaptive)
+    if dtype != own:
+        tag += "_" + str(dtype).split(".")[-1]
+    if lanes is not None:
+        tag += "_lanes"
     path = save_results(FOLDER, tag, results)
     Path(path).with_suffix(".graphs.json").write_text(json.dumps(rec, indent=1))
+    tube, constraint = margins(logs, m)
+    np.savez(Path(path).with_suffix(".lanes.npz"), tube_margin=tube,
+             constraint_margin=constraint, state_trajectory=logs["state_trajectory"])
     return path
 
 
@@ -376,6 +432,15 @@ def main(argv=None):
     p.add_argument("--scenarios", type=int, default=256)
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--dtype", default=None, choices=["float32", "float64"],
+                   help="the arithmetic type (default float32 on the card, float64 on the "
+                        "CPU); the settings stay those of the device's own type")
+    p.add_argument("--draw-steps", type=int, default=None, dest="draw_steps",
+                   help="draw the disturbances of a run this long and run the first --steps "
+                        "(lane b is then lane b of the longer run)")
+    p.add_argument("--lanes", default=None,
+                   help="comma-separated lanes of the --scenarios draw to run (alone, in "
+                        "one chunk)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--recycle", action="store_true")
     p.add_argument("--streaming", action="store_true")
@@ -423,7 +488,10 @@ def main(argv=None):
               max_iter_scp=args.max_iter_scp, chunks=args.chunks,
               scp_per_dispatch=args.scp_per_dispatch,
               soft_fallback=args.soft_fallback, restoration=args.restoration,
-              qp_tol=args.qp_tol, stall_damping=args.stall_damping)
+              qp_tol=args.qp_tol, stall_damping=args.stall_damping,
+              dtype=getattr(torch, args.dtype) if args.dtype else None,
+              draw_steps=args.draw_steps,
+              lanes=[int(v) for v in args.lanes.split(",")] if args.lanes else None)
     pos = (args.system, args.scenarios, args.steps, args.device, args.seed)
     if "WORLD_SIZE" in os.environ:
         # under torchrun: this process is one rank of the world

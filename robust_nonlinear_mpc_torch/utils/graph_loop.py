@@ -357,7 +357,9 @@ class GraphSet:
     `counts`: runs of each piece by name ("<name>" for a call, the body runs
     of a loop), and "host_reads", the reads of a device flag, of which
     `loop_reads` were a loop's (none on the card); `kernel_launches()`: the
-    port's kernel launches so far."""
+    port's kernel launches so far. With `timeline` a list, each replay
+    appends its (start, end) CUDA events, recorded on the current stream
+    around it."""
 
     def __init__(self, device=None, capture=None):
         on_card = device is not None and torch.device(device).type == "cuda"
@@ -369,6 +371,7 @@ class GraphSet:
         self.loop_reads = 0
         self._graphs = {}
         self._loops = {}
+        self.timeline = None
 
     @property
     def counts(self) -> Counter:
@@ -425,7 +428,17 @@ class GraphSet:
             g = self._graphs.get(name)
             if g is None:
                 g = self._graphs[name] = CapturedCall(fn, args, pool=self.pool, into=into)
+            return self._replay(g, *args)
+
+    def _replay(self, g, *args):
+        if self.timeline is None:
             return g(*args)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = g(*args)
+        end.record()
+        self.timeline.append((start, end))
+        return out
 
     def loop(self, name, cond, body, state, *args, cap):
         """`while_loop` of `body` under `cond` (a `CapturedLoop` `name` on
@@ -438,7 +451,7 @@ class GraphSet:
                 if self.capture:
                     self._loops[name] = g
             if self.capture:
-                return g(state, *args)
+                return self._replay(g, state, *args)
             replays, reads = g.replays, g.reads
             out = g(state, *args)
             self._counts[name] += g.replays - replays

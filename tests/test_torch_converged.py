@@ -15,6 +15,12 @@ N = 8, B = 4 lanes, 3 steps, SCP criterion 1e-7, at most 12 SCP iterations.
 * `build_chunked_converged_loop` equals the port's batched loop exactly at
   `scp_per_dispatch` 1 and 5, and its host-chunked soft fallback is a no-op
   when every hard SQP succeeds.
+* The quadrotor's full-mitigation loop (the published row's stack: soft
+  fallback, restoration, stall damping 0.5, QP tolerance 1e-5, at most 40
+  SCP iterations) in `build_chunked_converged_loop` against JAX's, at
+  N = 6 on 4 lanes of the row's own draws, 2 steps, the damping taken
+  after 2 SCP iterations; the same criteria. The soft fallback and the
+  restoration are on, and not taken on these lanes.
 """
 
 import jax
@@ -23,11 +29,17 @@ import numpy as np
 import pytest
 import torch
 
+from threadpoolctl import threadpool_limits
+
 import robust_nonlinear_mpc_torch.interop as interop
+from robust_nonlinear_mpc_torch.expe import main_monte_carlo_validation as tmc
 from robust_nonlinear_mpc_torch.sim import closed_loop as tcl
-from robust_nonlinear_mpc_tpu.models import Pendulum
+from robust_nonlinear_mpc_tpu.models import Pendulum, Quadrotor
 from robust_nonlinear_mpc_tpu.ops.qp_ipm import IPMOptions
-from robust_nonlinear_mpc_tpu.sim.closed_loop import build_batched_closed_loop
+from robust_nonlinear_mpc_tpu.sim.closed_loop import (
+    build_batched_closed_loop,
+    build_chunked_converged_loop,
+)
 from robust_nonlinear_mpc_tpu.solvers.scp_sls import SCPSLSSolver
 
 torch.set_num_threads(1)
@@ -174,3 +186,44 @@ def test_mesh_and_rti_are_refused():
     tsolver.opts = tsolver.opts._replace(rti=1)
     with pytest.raises(ValueError, match="until-convergence"):
         tcl.build_chunked_converged_loop(tsolver, 2)
+
+
+def _quadrotor(N_q):
+    """The Monte-Carlo driver's quadrotor (its weights and disturbance) at
+    horizon N_q, with the published row's full mitigation in float64."""
+    m = Quadrotor()
+    Q = np.diag([10.0] * 3 + [1.0] * 3 + [1.0] * 4 + [2.0] * 3)
+    qv = 0.5 * np.deg2rad(2.0)
+    m.E = m.dt * 5 * np.diag([0.10, 0.10, 0.10, 0.15, 0.15, 0.15, 0.1 * qv, qv, qv, qv,
+                              0.2, 0.2, 0.2])
+    solver = SCPSLSSolver(
+        N_q, Q, np.eye(4), m, 10 * Q,
+        Q_reg=1e4 * np.eye(13), R_reg=1e4 * np.eye(4), Q_reg_f=1e4 * np.eye(13),
+        rti=-1, fast_sls_rti_steps=0,
+    )
+    solver.opts = solver.opts._replace(
+        verbose=False, epsilon_convergence=1e-3, max_iter_scp=40, sls_max_iter=60,
+        ipm=solver.opts.ipm._replace(tol=1e-5), feasibility_restoration=True,
+        nominal_soft_fallback=True, scp_stall_damping=0.5, stall_damping_after=2)
+    d = dict(model="quadrotor", N=N_q, Q=solver.Q, R=solver.R, Qf=solver.Qf,
+             Q_reg=solver.Q_reg, R_reg=solver.R_reg, Q_reg_f=solver.Q_reg_f, E=m.E, dt=m.dt,
+             options=interop.options_to_plain(solver.opts))
+    return solver, interop.solver_from_numpy(d, device="cpu")
+
+
+def test_quadrotor_full_mitigation_matches_jax_chunked():
+    T_q = 2
+    with threadpool_limits(limits=1):
+        solver, tsolver = _quadrotor(6)
+        # lanes 0-3 of the published row's draws (x0 spread 0.2 around the
+        # hover point, w in [-1, 1])
+        x_center = np.concatenate([np.full(3, 2.0), np.zeros(3), [1.0, 0, 0, 0], np.zeros(3)])
+        x0s, Ws = tmc.draws(tsolver.m, x_center, 0.2, 1024, 10, 0)
+        x0s, Ws = x0s[:B], Ws[:B, :T_q]
+        ref = build_chunked_converged_loop(solver, T_q, scp_per_dispatch=2)(
+            jnp.asarray(x0s), jnp.asarray(Ws))
+        got = tcl.build_chunked_converged_loop(tsolver, T_q, scp_per_dispatch=2)(x0s, Ws)
+    assert bool(got.success.all())
+    # stall damping is taken: lanes past 2 SCP iterations
+    assert int(got.scp_iters.max()) > 2
+    _compare(ref, got)

@@ -99,9 +99,22 @@ def _forms(stat, data, opts, bound, caps):
     return eager, pair, capped
 
 
-def test_solve_qp_forms_are_bit_for_bit(case):
+@pytest.fixture(scope="module")
+def forms(case):
+    """`_forms` of one horizon's QPs, solved once for both tests."""
     stat, data, opts, bound, caps, _ = case
-    eager, pair, capped = _forms(stat, data, opts, bound, caps)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            return _forms(stat, data, opts, bound, caps)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_solve_qp_forms_are_bit_for_bit(case, forms):
+    stat, data, opts, bound, caps, _ = case
+    eager, pair, capped = forms
     assert_same(pair, eager)
     assert_same(capped, eager)
     # the node's twin: the test before the first body and after each one
@@ -119,9 +132,9 @@ def test_solve_qp_forms_are_bit_for_bit(case):
     assert eager.success[others].all() and (eager.iters[others] > 5).all()
 
 
-def test_solve_qp_forms_match_jax(case):
-    stat, data, opts, bound, caps, ref = case
-    for got in _forms(stat, data, opts, bound, caps):
+def test_solve_qp_forms_match_jax(case, forms):
+    ref = case[-1]
+    for got in forms:
         assert got.iters.tolist() == np.asarray(ref.iters).tolist()
         assert got.success.tolist() == np.asarray(ref.success).tolist()
         for f in ("X", "U", "lam"):

@@ -119,3 +119,14 @@ def test_io_and_common_round_trip(tmp_path):
     path = save_results(folder, "mc_validation_pendulum", {"v": np.array([1.0])})
     assert Path(path).name.startswith("mc_validation_pendulum_20")
     assert float(load_latest(folder)["v"][0]) == 1.0
+
+
+def test_driver_refuses_a_single_step(tmp_path, monkeypatch):
+    """The statistics check (x_t, u_t) for t < T - 1: a one-step run has
+    nothing to check, and the driver says so before it runs (JAX's driver
+    fails on an empty reduction after the run)."""
+    import pytest
+
+    monkeypatch.setattr(tmc, "FOLDER", str(tmp_path))
+    with pytest.raises(ValueError, match="at least 2 steps"):
+        tmc.generate("pendulum", scenarios=2, steps=1, device="cpu", converged=True)
