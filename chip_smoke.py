@@ -18,11 +18,14 @@ before the result lines):
      B = 512 (fused, fused_iter, riccati; float32 and float64); record in
      `chiprun_out/chip_smoke_while.json`;
   3. each kernel's registers per thread, shared bytes per block, resident
-     blocks per SM and waves at B = 512 (from the CUDA runtime); each kernel
+     blocks per SM, waves and whether a lane's stage sequences sit in
+     shared memory at B = 512, N = 15, and K1/K2's at B = 512, N = 60 (from
+     the CUDA runtime); each kernel
      against its plain torch version on the card, relative to each output's
      max |value|: the Newton kernels K1/K2 float64 to 1e-10 and float32 to
-     1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60)} with nx = 17, nu = 4,
-     nu in {1, 2} at B = 8, a batch of 529 (the last wave part-filled) and
+     1e-4 at (B, N) in {(512, 15), (37, 15), (8, 60), (512, 60)} with nx =
+     17, nu = 4 (at (512, 60) the JAX package runs them as its windowed
+     kernels K5a-c), nu in {1, 2} at B = 8, a batch of 529 (the last wave part-filled) and
      the other widths: the pendulum's and the quadrotor's (4, 1), (13, 4)
      and the general path at (7, 3), (32, 2); the whole-iteration kernel K6 at the same (B, N) with ni = 42,
      ni_f = 34 (a lane marked done and a lane whose step is not finite
@@ -30,7 +33,8 @@ before the result lines):
      kernel K4, float32 to 1e-4, and the SLS backward kernel K3 (ni =
      2 (nx + nu), ni_f = 2 nx) at the same (B, N), batch of 529 and widths
      (K3 also at nu in {1, 2}); per-call times
-     of every kernel and its plain version at (512, 15) float32, beside the
+     of every kernel and its plain version at (512, 15) float32, and of
+     K1/K2 at (512, 60) float32 (the K5a-c rows), beside the
      least time the card could take (bytes over 3.35 TB/s, operations over
      the CUDA-core peak), and for K3 also the column-blocked torch backward
      (a kernel's time is its device time from torch.profiler, taken from a
@@ -176,6 +180,26 @@ before the result lines):
      step and solves/s of 10 replays in alternating pairs; TF32 must be on
      inside the switch's context and off after it. Record in
      `chiprun_out/chip_smoke_13.json`.
+ 14. the long horizon, N = 60, where the JAX package windows its Newton
+     kernels (K5a-c; phase 3 holds K1/K2 at (512, 60) in both types and
+     reports their occupancy there): (a) the QP probe (`tools/fused_n60_qp_probe.py`) on 512
+     float32 rocket QPs around the lanes' SQP nominals: kkt="fused" against
+     kkt="riccati", identical iterations and success on every lane, X/U
+     within 1e-4 relative (phase 4's criteria); (b) the bench twin at
+     N = 60 from its own SQP seed, cut to `LONG_SMOKE` (lanes, warm-in,
+     timed steps) and a `LONG_SMOKE_LAT`-step latency loop: success 1.0,
+     the state finite, the eager check, and K1/K2 launched in the captured
+     step's timed replays (the kernels record's `factor_predictor_n60` and
+     `resolve_n60` launches). It runs in phase 9b's worker after 9c, beside
+     the untimed phases (alone with `--phases 14`); record in
+     `chiprun_out/chip_smoke_14.json`. `--long-horizon 30,60` runs the
+     bench twin's full configuration (B = 512, 30 warm-in and 10 timed
+     steps) at each N, kkt="fused" and "riccati" from one SQP seed in the
+     order fused, riccati, riccati, fused, each with its peak memory, the
+     first of each with its stage breakdown and the first fused one with
+     the captured step's busy share
+     (`chiprun_out/chip_smoke_long_horizon.json`); each run fails as the
+     bench runs of phases 6-8 do.
 Every launch counter is zeroed just before each bench run and before each
 guarantee row of phases 9b and 9c (in their own process), and read just
 after. A wrapper counts a launch
@@ -187,10 +211,10 @@ node's device counter (`utils.graph_loop.Recording`): the bench record's
 record's `launches` (the first run of each path's timed window) are
 counted so. Phases 10 and 9a require each captured step's launches to be
 the eager step's. The last lines are the kernels record, the nvidia-smi
-line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`, `13`)
+line and {"ok": true, "device": {...}}. `--phases 9` (or `--phases 11`, `12`, `13`, `14`)
 runs a subset (phases 1 and 2 always run) and then prints neither result
-line; so do `--guarantee-alone`, `--guarantee-scaling` and
-`--published-rows`.
+line; so do `--guarantee-alone`, `--guarantee-scaling`, `--published-rows`
+and `--long-horizon`.
 """
 
 from __future__ import annotations
@@ -242,6 +266,11 @@ TPU_SOURCE = "robust_nonlinear_mpc_tpu/ops/pallas_qp.py"
 REPLACES = {
     "factor_predictor": f"{TPU_SOURCE}:161",
     "resolve": f"{TPU_SOURCE}:293",
+    # above N = 30 the JAX package runs K1's backward sweep and K2's as the
+    # windowed kernels K5a and K5c (their forward sweeps as K5b, `:709`); the
+    # port runs K1/K2 at any N, so these rows are K1/K2 at N = 60
+    "factor_predictor_n60": f"{TPU_SOURCE}:568",
+    "resolve_n60": f"{TPU_SOURCE}:664",
     "ipm_iteration": f"{TPU_SOURCE}:1234",
     "fused_response": "robust_nonlinear_mpc_tpu/ops/pallas_response.py:40",
     "backward_K": "robust_nonlinear_mpc_tpu/ops/pallas_sls.py:138",
@@ -249,6 +278,8 @@ REPLACES = {
 SOURCES = {
     "factor_predictor": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
     "resolve": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
+    "factor_predictor_n60": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
+    "resolve_n60": "robust_nonlinear_mpc_torch/csrc/fused_qp.cu",
     "ipm_iteration": "robust_nonlinear_mpc_torch/csrc/fused_ipm.cu",
     "fused_response": "robust_nonlinear_mpc_torch/csrc/fused_response.cu",
     "backward_K": "robust_nonlinear_mpc_torch/csrc/fused_backward.cu",
@@ -257,7 +288,22 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # the B = 1 latency loop of each bench run here (the bench twin alone runs
 # the reference's 200 steps): cut to keep the script inside its time limit
 LATENCY_STEPS = 50
-ALL_PHASES = range(3, 14)
+ALL_PHASES = range(3, 15)
+# the long horizon: the JAX package windows its Newton kernels above N = 30
+# (`pallas_qp._pick_window`); the port's K1/K2 run it in one stage loop
+LONG_N = 60
+# the Newton kernels K1/K2, which the long horizon runs
+NEWTON = ("factor_predictor", "resolve")
+# the kernels of each bench path: the main path (phase 6), the fused-kernel
+# path (7) and the sls_block = -1 path (8)
+PATH_KERNELS = {"6": NEWTON, "7": ("ipm_iteration", "fused_response"), "8": ("backward_K",)}
+# phase 14's cut bench run at N = LONG_N: lanes, warm-in and timed steps,
+# and its B = 1 latency loop (the full configuration, B = 512 with 30 and
+# 10 steps, runs under --long-horizon). 16 lanes are one soft-fallback
+# chunk at N = 60 (`soft_fallback_chunk`), which costs about a minute on
+# the card whatever its lanes: the seed sets this run's seconds
+LONG_SMOKE = dict(B=16, n_warm=3, n_rep=3)
+LONG_SMOKE_LAT = 5
 # phase 9b's lanes (the rocket) and phase 9c's (the quadrotor and the
 # pendulum), lanes 0..B-1 of the published 1024-lane draws. 9b at B = 1024
 # took 497.0 s beside the untimed phases and held the timed ones back by
@@ -304,6 +350,8 @@ def compare_kernels(Bsz, N, nu, dtype, nx=17):
 
 
 KERNEL_CASES = [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)]
+# K1/K2 at the long horizon's full batch, where the JAX package runs K5a-c
+LONG_CASE = (512, LONG_N, 4)
 # the Newton kernels' and K6's edges, as (B, N, nx, nu): a batch that does not
 # fill the last wave of one-block-per-lane kernels (529 > 4 x 132), the other
 # models' instantiated widths, the pendulum's (4, 1) and the quadrotor's
@@ -396,7 +444,7 @@ def check_kernels():
     """Phase 3: every kernel against its plain version on the card. Returns
     each kernel's largest absolute error at the main path's shape."""
     cases = [(dtype, (B, N), lambda B=B, N=N, nu=nu, dtype=dtype: compare_kernels(B, N, nu, dtype))
-             for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES]
+             for dtype in (torch.float64, torch.float32) for B, N, nu in KERNEL_CASES + [LONG_CASE]]
     cases += [(dtype, (B, N), lambda B=B, N=N, nx=nx, nu=nu, dtype=dtype:
                compare_kernels(B, N, nu, dtype, nx=nx))
               for dtype in (torch.float64, torch.float32) for B, N, nx, nu in EDGE_CASES]
@@ -418,27 +466,29 @@ def check_kernels():
             worst[(kname, dtype)] = max(worst.get((kname, dtype), 0.0), r)
             if (Bsz, N, dtype) == (512, 15, torch.float32):
                 main_err[kname] = max(main_err.get(kname, 0.0), ab)
+            if (Bsz, N, dtype) == (512, LONG_N, torch.float32):
+                main_err[f"{kname}_n60"] = max(main_err.get(f"{kname}_n60", 0.0), ab)
     for (kname, dtype), r in worst.items():
         say(f"[3] {kname} {dtype}: worst rel err {r:.3e} (tol {TOL[dtype]:g})")
     return main_err
 
 
-def report_occupancy(Bsz=512, N=15):
-    """Phase 3: what each kernel costs the SM at the main path's widths, from
-    the CUDA runtime: registers per thread, shared bytes per block (static +
-    dynamic), spill bytes, resident blocks per SM and the waves of a grid at
-    B = 512. Returns {(kernel, dtype name): info}."""
-    rows = {}
-    for name, suffixes in cuda_lib.INFO_KERNELS.items():
-        for sfx in suffixes:
+def report_occupancy(Bsz=512):
+    """Phase 3: what each kernel costs the SM at the main path's widths
+    (N = 15), and K1/K2 at the long horizon (N = LONG_N), from the CUDA
+    runtime: registers per thread, shared bytes per block (static +
+    dynamic), spill bytes, resident blocks per SM, the waves of a grid at
+    B = 512 and whether a lane's stage sequences sit in shared memory."""
+    cases = [(name, 15) for name in cuda_lib.INFO_KERNELS] + [(name, LONG_N) for name in NEWTON]
+    for name, N in cases:
+        for sfx in cuda_lib.INFO_KERNELS[name]:
             dtype = torch.float32 if sfx == "f32" else torch.float64
             info = cuda_lib.kernel_info(name, dtype, Bsz, N, NX, NU, NI, NI_F)
-            rows[(name, sfx)] = info
             say(f"[3] occupancy {name} {sfx} at B={Bsz} N={N}: {info['registers']} registers, "
                 f"{info['static_smem'] + info['dynamic_smem']} shared bytes "
                 f"({info['dynamic_smem']} dynamic), {info['local_bytes']} local (stack) bytes, "
-                f"{info['blocks_per_sm']} blocks/SM on {info['sms']} SMs, {info['waves']} wave(s)")
-    return rows
+                f"{info['blocks_per_sm']} blocks/SM on {info['sms']} SMs, {info['waves']} wave(s), "
+                f"sequences on chip {info['on_chip']}")
 
 
 def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dtype=torch.float32):
@@ -515,8 +565,9 @@ def kernel_bound(name, Bsz=512, N=15, nx=NX, nu=NU, ni=NI, ni_f=NI_F, nw=NX, dty
 
 
 def time_kernels():
-    """Per-call times at the main path's shape (B=512, N=15, f32), in the
-    order plain, kernel, kernel, plain: the kernel's device time (profiler),
+    """Per-call times at the main path's shape (B=512, N=15, f32), and K1/K2's
+    at the long horizon (B=512, N=60, f32), in the order plain, kernel,
+    kernel, plain: the kernel's device time (profiler),
     the plain version's and the wrapper's by CUDA events (the wrapper's
     includes its allocations, its torch ops and any host gaps)."""
     mats, rhs, rhs2 = newton_inputs(512, 15, NX, NU, torch.float32, "cuda", seed=1)
@@ -540,16 +591,25 @@ def time_kernels():
     # K3's plain version is the folded torch backward; the column-blocked
     # one (sls_block > 0) is timed beside it
     blocked = lambda: backward_solve_blocked(*bargs, block=2)[1]
+    # K1/K2 at the long horizon (the rows of the JAX package's K5a-c)
+    lmats, lrhs, lrhs2 = newton_inputs(512, LONG_N, NX, NU, torch.float32, "cuda", seed=3)
+    lfact = fused_qp.factor_predictor(*lmats, *lrhs)[3]
+    pairs["factor_predictor_n60"] = (lambda: fused_qp.factor_predictor(*lmats, *lrhs),
+                                     lambda: fused_qp._plain_factor_predictor(*lmats, *lrhs))
+    pairs["resolve_n60"] = (lambda: fused_qp.resolve(lmats[0], lmats[1], lfact, *lrhs2),
+                            lambda: fused_qp._plain_resolve(lmats[0], lmats[1], lfact, *lrhs2))
     t = {}
     for k, (kern, plain) in pairs.items():
+        kernel, N = (k[:-4], LONG_N) if k.endswith("_n60") else (k, 15)
         p1 = bench.cuda_ms(plain, 5)
-        (k1, seen1), (k2, seen2) = kernel_ms(kern, k, 30), kernel_ms(kern, k, 30)
+        (k1, seen1), (k2, seen2) = kernel_ms(kern, kernel, 30), kernel_ms(kern, kernel, 30)
         w = bench.cuda_ms(kern, 30)
         p2 = bench.cuda_ms(plain, 5)
         t[k] = (min(k1, k2), min(p1, p2))
         extra = f", torch blocked(2) {bench.cuda_ms(blocked, 5):.4f} ms" if k == "backward_K" else ""
-        say(f"[3] {k} at B=512 N=15 f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
-            f"plain {t[k][1]:.4f} ms{extra}, bound " + "{:.4f} ms ({})".format(*kernel_bound(k))
+        say(f"[3] {kernel} at B=512 N={N} f32: kernel {t[k][0]:.4f} ms (wrapper {w:.4f} ms), "
+            f"plain {t[k][1]:.4f} ms{extra}, bound "
+            + "{:.4f} ms ({})".format(*kernel_bound(kernel, N=N))
             + f", profiler windows of 30 recorded {seen1} and {seen2} launches")
     return t
 
@@ -1012,9 +1072,7 @@ def check_capture(wls):
     captured K = 8 program against 8 replays of the one-step graph; (e)
     `build_batched_closed_loop` in RTI mode on the captured step against
     the CPU."""
-    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response"),
-                    "8": ("backward_K",)}
-    for label, kernels in path_kernels.items():
+    for label, kernels in PATH_KERNELS.items():
         wl = wls[label]
         launched = captured_vs_eager(f"10a {label}", wl, wl.carry, wl.w_seq)
         if not all(k in step for step in launched for k in kernels):
@@ -1084,22 +1142,25 @@ def check_rti_closed_loop(Bsz=8, N=6, steps=3, seed=0, devices=("cuda", "cpu")):
         f"{logs[devices[1]].qp_iters.tolist()}, max |diff| {worst:.2e}")
 
 
-def run_bench(label, wl):
-    """One bench twin run (warm-in, timed window, B = 1 latency loop) of a
-    built workload, its launch counts zeroed just before and read just
-    after (the WHILE nodes' tests too: each captured step holds some)."""
+def run_bench(label, wl, n_lat=LATENCY_STEPS):
+    """One bench twin run (warm-in, timed window, B = 1 latency loop of
+    `n_lat` steps) of a built workload, its launch counts zeroed just before
+    and read just after (the WHILE nodes' tests too: each captured step
+    holds some). It fails on success below 1.0, the captured step against
+    the eager one or no on-device step time."""
     from robust_nonlinear_mpc_torch.ops import graph_while
 
     bench.reset_launch_counts()
     graph_while.reset_launch_counts()
     t0 = time.perf_counter()
-    record, carry = bench.run(wl, n_lat=LATENCY_STEPS)
+    record, carry = bench.run(wl, n_lat=n_lat)
     launches = bench.launch_counts()
     while_launches = graph_while.launch_counts()
     if min(while_launches.values()) <= 0:
         fail(f"bench twin [{label}]: the captured steps hold no WHILE node: {while_launches}")
     say(f"[{label}] bench twin kkt={record['kkt']} response={record['response']} "
-        f"sls_block={record['sls_block']} on the captured step "
+        f"sls_block={record['sls_block']} N={record['horizon_N']} B={record['batch']} on the "
+        f"captured step "
         f"ran in {time.perf_counter() - t0:.1f} s: {record['value']} solves/s, "
         f"on_device_step_ms {record['on_device_step_ms']} (K walls "
         f"{record['on_device_fit_points_ms']}), latency p50 "
@@ -1107,9 +1168,9 @@ def run_bench(label, wl):
         f"eager check) {launches}, a timed step (mean) {record['kernel_launches_per_step']}, "
         f"WHILE tests captured {while_launches}")
     print(json.dumps(record), flush=True)
+    check = record["eager_check"]
     if record["success_fraction"] != 1.0 or not record["finite"]:
         fail(f"bench twin [{label}]: success_fraction must be 1.0 and the state finite")
-    check = record["eager_check"]
     if not (check["success_equal"] and check["qp_iters_equal"]):
         fail(f"bench twin [{label}]: the captured step and the eager step differ: {check}")
     if record["on_device_step_ms"] is None:
@@ -1118,18 +1179,23 @@ def run_bench(label, wl):
     return record, carry, launches
 
 
-def breakdown(label, wl, carry):
+def breakdown(label, wl, carry, profiled=(False, True)):
     """Stage breakdown of the eager step, and the device busy share of the
-    eager and of the captured step, of one configuration."""
+    eager and the captured step (`profiled`: which of them, by `captured`),
+    of one configuration."""
     stages = bench.stage_breakdown(wl, carry, wl.w_seq[0])
     say(f"[{label}] stage ms (eager) {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
     out = {"stages": stages}
-    for name, captured in (("profile", False), ("profile_captured", True)):
+    for captured in profiled:
+        name = "profile_captured" if captured else "profile"
         prof = bench.profile_kernels(wl, carry, wl.w_seq, captured=captured)
         say(f"[{label}] profiler, {'captured' if captured else 'eager'} step: {prof['steps']} "
-            f"steps, wall (unprofiled) {prof['wall_ms']:.2f} ms, device kernels "
-            f"{prof['device_kernel_ms']:.2f} ms, busy share {prof['device_busy_share']}, "
-            f"{sum(r['count'] for r in prof['top_kernels'])} kernel records in the top rows")
+            f"steps, wall {prof['wall_ms']:.2f} ms (profiled {prof['profiled_ms']:.2f} ms), "
+            f"device kernels {prof['device_kernel_ms']:.2f} ms summed, "
+            f"{prof['device_busy_ms']:.2f} ms busy (their union), busy share "
+            f"{prof['device_busy_share']:.4f}, {prof['kernel_records']} kernel records, K1/K2 "
+            f"records {prof['k1k2_records']} of launches {prof['k1k2_launches']} (complete "
+            f"{prof['records_complete']})")
         out[name] = prof
     torch.cuda.empty_cache()
     return out
@@ -1151,12 +1217,10 @@ def bench_phases(wls):
     and 7 run twice, in the order default, fused, fused, default, so the
     host's drift shows in the pairs; phase 8 runs once. Returns each
     kernel's launches in the first run of its path."""
-    path_kernels = {"6": ("factor_predictor", "resolve"), "7": ("ipm_iteration", "fused_response"),
-                    "8": ("backward_K",)}
     launches, profile = {}, {label: {"records": []} for label in wls}
     for label in ("6", "7", "7", "6", "8"):
         record, carry, counts = run_bench(label, wls[label])
-        kernels = path_kernels[label]
+        kernels = PATH_KERNELS[label]
         if min(counts[k] for k in kernels) <= 0:
             fail(f"the bench path [{label}] did not launch {kernels}: {counts}")
         if min(record["kernel_launches"][k] for k in kernels) <= 0:
@@ -1171,6 +1235,117 @@ def bench_phases(wls):
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_profile.json").write_text(json.dumps(profile, indent=1))
     return launches
+
+
+def check_long_probe(lanes=512):
+    """Phase 14 (a): the QP probe (`tools/fused_n60_qp_probe.py`) at N = 60
+    on `lanes` float32 rocket QPs around the lanes' SQP nominals: kkt="fused"
+    against kkt="riccati", identical iterations and success on every lane,
+    X/U within 1e-4 relative (phase 4's criteria)."""
+    from robust_nonlinear_mpc_torch.tools import fused_n60_qp_probe as probe
+
+    row = probe.probe(LONG_N, lanes, 15, "cuda", torch.float32)
+    ric, fus = row["riccati"], row["fused"]
+    say(f"[14] QP probe N={LONG_N} B={lanes} f32: SQP nominals {row['sqp_s']:.1f} s "
+        f"({row['sqp_success']} converged), solves {row['solves_s']:.1f} s; riccati success "
+        f"{ric['n_success']} mean iters {ric['mean_iters']:.3f} worst KKT {ric['worst_kkt']:.2e}; "
+        f"fused success {fus['n_success']} mean iters {fus['mean_iters']:.3f} worst KKT "
+        f"{fus['worst_kkt']:.2e}; lanes differing in iters {row['lanes_iters_differ']}, in "
+        f"success {row['lanes_success_differ']}; X rel {row['rel_X_gap']:.2e}, U rel "
+        f"{row['rel_U_gap']:.2e}")
+    if row["lanes_iters_differ"] or row["lanes_success_differ"]:
+        fail("[14] the probe's fused and riccati paths differ in iterations or success")
+    if not (row["rel_X_gap"] <= 1e-4 and row["rel_U_gap"] <= 1e-4):
+        fail("[14] the probe's fused and riccati solutions differ by more than 1e-4")
+    return {k: v for k, v in row.items() if k not in ("riccati", "fused")} | {
+        kkt: {k: row[kkt][k] for k in ("n_success", "mean_iters", "worst_kkt")}
+        for kkt in ("riccati", "fused")}
+
+
+def long_horizon_phase(out="chip_smoke_14.json"):
+    """Phase 14: the long horizon, N = 60, where the JAX package runs its
+    windowed Newton kernels K5a-c (phase 3 holds K1/K2 against their plain
+    versions at (512, 60) and reports their occupancy there): (a) the QP
+    probe at B = 512; (b) a cut bench run at N = 60 (`LONG_SMOKE`: lanes,
+    warm-in and timed steps cut; latency loop `LONG_SMOKE_LAT`) from its
+    own SQP seed, which must launch K1/K2 in the captured step's timed replays with success 1.0
+    and the state finite. Writes the record; returns it (with the timed
+    window's K1/K2 launches)."""
+    t0 = time.perf_counter()
+    record = {"probe": check_long_probe()}
+    t1 = time.perf_counter()
+    wl = bench.build_workload(N=LONG_N, **LONG_SMOKE)
+    seed_s = time.perf_counter() - t1
+    bench_record, _, _ = run_bench("14", wl, n_lat=LONG_SMOKE_LAT)
+    timed = bench_record["kernel_launches"]
+    if min(timed.get(k, 0) for k in NEWTON) <= 0:
+        fail(f"[14] the N = {LONG_N} bench step did not launch K1/K2 in its timed replays: {timed}")
+    record.update(bench=bench_record, seed_s=seed_s, cuts=LONG_SMOKE | {"n_lat": LONG_SMOKE_LAT},
+                  launches={f"{k}_n60": timed[k] for k in NEWTON},
+                  phase_s=time.perf_counter() - t0)
+    say(f"[14] cut bench N={LONG_N} ({LONG_SMOKE}, latency loop {LONG_SMOKE_LAT}): seed "
+        f"{seed_s:.1f} s ({wl.n_soft_fallback} soft-fallback lanes), success "
+        f"{bench_record['success_fraction']}, finite {bench_record['finite']}, K1/K2 in the "
+        f"timed replays {record['launches']}; phase 14 took {record['phase_s']:.1f} s")
+    del wl
+    torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / out).write_text(json.dumps(record, indent=1))
+    return record
+
+
+def long_horizon_runs(horizons, out="chip_smoke_long_horizon.json"):
+    """`--long-horizon`: the bench twin's record at each N of `horizons`, at
+    its full configuration (B = 512, 30 warm-in and 10 timed steps, float32,
+    the B = 1 latency loop cut to LATENCY_STEPS), kkt="fused" (K1/K2) and
+    kkt="riccati" (the plain Newton path the JAX record compares against)
+    from one SQP seed, in the order fused, riccati, riccati, fused; the
+    first run of each with its stage breakdown, and the first fused run
+    with the captured step's busy share (`bench.profile_kernels`); the
+    seed's seconds and each run's peak device memory. Each run fails as every bench run does
+    (`run_bench`). Writes after each run."""
+    result = {"gpu": bench.gpu_identity()[2], "horizons": {}}
+    path = OUT_DIR / out
+    OUT_DIR.mkdir(exist_ok=True)
+    for N in horizons:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wls = {"fused": bench.build_workload(N=N)}
+        seed_s = time.perf_counter() - t0
+        wls["riccati"] = bench.build_workload(N=N, kkt="riccati", seed_from=wls["fused"])
+        entry = result["horizons"][str(N)] = {
+            "seed_s": seed_s, "soft_fallback_lanes": wls["fused"].n_soft_fallback,
+            "seed_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "runs": []}
+        say(f"[lh] N={N}: SQP seed of B=512 lanes in {seed_s:.1f} s, "
+            f"{entry['soft_fallback_lanes']} soft-fallback lanes")
+        for kkt in ("fused", "riccati", "riccati", "fused"):
+            torch.cuda.reset_peak_memory_stats()
+            record, carry, _ = run_bench(f"lh N={N} {kkt}", wls[kkt])
+            timed = record["kernel_launches"]
+            newton = [timed.get(k, 0) for k in NEWTON]
+            if kkt == "fused" and min(newton) <= 0:
+                fail(f"[lh] N={N}: the fused step did not launch K1/K2 in its timed replays")
+            if kkt == "riccati" and max(newton) > 0:
+                fail(f"[lh] N={N}: the riccati step launched K1/K2")
+            run = {"kkt": kkt, "record": record,
+                   "captured_step_ms": 1e3 * record["batch"] / record["value"],
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if all(r["kkt"] != kkt for r in entry["runs"]):
+                # the captured fused step's profile only: with CPU activity
+                # the eager profile took 270 s for riccati at N = 30 (290,247
+                # kernel records in 3 steps), and the profiled captured
+                # riccati step at N = 60 ended the process (SIGSEGV)
+                run.update(breakdown(f"lh N={N} {kkt}", wls[kkt], carry,
+                                     profiled=(True,) if kkt == "fused" else ()))
+            say(f"[lh] N={N} {kkt}: captured step {run['captured_step_ms']:.3f} ms, peak "
+                f"{run['peak_gib']:.2f} GiB")
+            entry["runs"].append(run)
+            path.write_text(json.dumps(result, indent=1))
+            del carry
+            torch.cuda.empty_cache()
+        del wls
+        torch.cuda.empty_cache()
+    return result
 
 
 def random_qps(Bsz, N, nx, nu, dtype, device, seed):
@@ -1464,14 +1639,6 @@ def check_converged(Bsz=8, N=6, steps=2, seed=0, devices=("cuda", "cpu"), chunke
 PROFILER_MAX_B = 256
 
 
-def _union_ms(spans):
-    busy, end = 0.0, None
-    for s, e in sorted(spans):
-        busy += max(0.0, e - max(s, end if end is not None else s))
-        end = e if end is None else max(end, e)
-    return busy
-
-
 def profile_round(solver, st, x, graphs, profiler=False):
     """One masked SCP round of every lane (`sim.closed_loop._scp_round`, the
     undecided lanes running) from a step's entry state `st` (a
@@ -1517,7 +1684,7 @@ def profile_round(solver, st, x, graphs, profiler=False):
         spans = [(start.elapsed_time(a), start.elapsed_time(b)) for a, b in graphs.timeline]
     finally:
         graphs.timeline = None
-    event_ms, graph_ms = start.elapsed_time(stop), _union_ms(spans)
+    event_ms, graph_ms = start.elapsed_time(stop), bench.union_ms(spans)
     out = {"round_ms": round_ms, "event_ms": event_ms, "graph_busy_ms": graph_ms,
            "graph_busy_share": graph_ms / event_ms,
            "graph_replays": sum(v for k, v in per_round.items() if k != "host_reads"),
@@ -1525,10 +1692,10 @@ def profile_round(solver, st, x, graphs, profiler=False):
     if not profiler:
         return out
     launched = graphs.kernel_launches()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         one_round()
-    profiled_ms = 1e3 * (time.perf_counter() - t0)
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
     profiled = k12(graphs.kernel_launches() - launched)
     kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
     records = {"factor_predictor": sum("factor_predictor_kernel" in ev.name for ev in kernels),
@@ -1541,7 +1708,7 @@ def profile_round(solver, st, x, graphs, profiler=False):
             gap = s - end
             gaps["under_10us" if gap < 10 else "10_to_100us" if gap < 100 else "over_100us"] += gap / 1e3
         end = e if end is None else max(end, e)
-    busy_ms = _union_ms(intervals) / 1e3
+    busy_ms = bench.union_ms(intervals) / 1e3
     out.update(profiled_ms=profiled_ms, kernel_records=len(kernels),
                device_kernel_ms=sum(ev.self_device_time_total for ev in prof.key_averages()
                                     if ev.device_type == DeviceType.CUDA) / 1e3,
@@ -2256,8 +2423,9 @@ def start_worker(log_name, *flags):
     return proc, log
 
 
-def join_worker(proc, log, label, timeout=900):
-    """Wait for a worker, echo its lines, fail if it failed."""
+def join_worker(proc, log, label, timeout=900, also=()):
+    """Wait for a worker, echo its lines (those of its phase `label` and of
+    the phases in `also`), fail if it failed."""
     import subprocess
 
     try:
@@ -2268,7 +2436,8 @@ def join_worker(proc, log, label, timeout=900):
         rc = None
     log.close()
     for line in Path(log.name).read_text().splitlines():
-        if line.startswith((f"[{label}]", "[mc]", "chip_smoke FAILED", "Traceback")) or "Error" in line:
+        if line.startswith((f"[{label}]", "[mc]", "chip_smoke FAILED", "Traceback")
+                           + tuple(f"[{p}]" for p in also)) or "Error" in line:
             print(line, flush=True)
     if rc != 0:
         fail(f"phase {label}'s worker ended with {rc} (see {log.name})")
@@ -2290,7 +2459,12 @@ def main(argv=None):
     ap.add_argument("--guarantee-scaling", default=None,
                     help="comma-separated B: one step of the rocket's published row at each "
                          "B after the build; no result lines")
+    ap.add_argument("--long-horizon", default=None,
+                    help="comma-separated N (30,60): the bench twin's record at each N, B = "
+                         "512, kkt fused and riccati in alternating pairs from one seed, after "
+                         "the build; no result lines")
     ap.add_argument("--guarantee-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--long-check", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--compare-reference", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--parallel-store", help=argparse.SUPPRESS)
@@ -2304,6 +2478,10 @@ def main(argv=None):
         cuda_lib.build_extension()
         guarantee_mode(stages=True)
         published_pair()
+        if args.long_check:
+            # phase 14 after 9c, in this worker: the main process is still in
+            # its untimed phases then
+            long_horizon_phase()
         return 0
     if args.parallel_rank is not None or args.entry_worker:
         # phase 12's workers run at a lower priority: phase 9b's host-bound
@@ -2323,7 +2501,7 @@ def main(argv=None):
         torch.set_num_threads(2)
         compare_run("cpu", "riccati", out=COMPARE_REFERENCE)
         return 0
-    if args.guarantee_alone or args.published_rows or args.guarantee_scaling:
+    if args.guarantee_alone or args.published_rows or args.guarantee_scaling or args.long_horizon:
         say(f"[1] device {torch.cuda.get_device_name(0)}, nvidia-smi: {bench.gpu_identity()[2]}")
         t0 = time.perf_counter()
         cuda_lib.build_extension()
@@ -2335,6 +2513,8 @@ def main(argv=None):
                            out=f"chip_smoke_guarantee_alone_{args.guarantee_alone}.json")
         if args.published_rows:
             published_rows(args.published_rows.split(","), chunks=args.chunks)
+        if args.long_horizon:
+            long_horizon_runs([int(n) for n in args.long_horizon.split(",")])
         return 0
     run = set(ALL_PHASES) if args.phases == "all" else {int(p) for p in args.phases.split(",")}
     name, limit_w, smi_line = bench.gpu_identity()
@@ -2347,7 +2527,9 @@ def main(argv=None):
     # seed needs no kernel; phase 11a's reference needs no card)
     workers = {}
     if 9 in run:
-        workers["9b"] = start_worker("chip_smoke_9b.log", "--guarantee-worker")
+        # phase 14 runs in this worker after 9c when both are asked for
+        workers["9b"] = start_worker("chip_smoke_9b.log", "--guarantee-worker",
+                                     *(["--long-check"] if 14 in run else []))
     if 11 in run:
         workers["11a"] = start_worker("chip_smoke_11a_cpu.log", "--compare-reference")
     try:
@@ -2385,7 +2567,7 @@ def main(argv=None):
             check_parallel(gloo, workers["12d"])
         if 9 in run:
             check_converged()
-            join_worker(*workers["9b"], "9b")
+            join_worker(*workers["9b"], "9b", also=("14",))
         torch.set_num_threads(threads)
         # timed phases, alone on the card
         if 3 in run:
@@ -2396,6 +2578,9 @@ def main(argv=None):
             launches = bench_phases(wls)
         if 13 in run:
             precision_phase(wls["6"])
+        if 14 in run:
+            long_launches = (json.loads((OUT_DIR / "chip_smoke_14.json").read_text())
+                             if 9 in run else long_horizon_phase())["launches"]
     finally:
         for proc, _ in workers.values():
             if proc.poll() is None:
@@ -2406,13 +2591,24 @@ def main(argv=None):
         return 0
 
     kernels = []
-    for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response", "backward_K"):
-        bound_ms, bound_by = kernel_bound(k)
+    launches |= long_launches
+    # the run each count is from: a step launches K1/K2 as often as its
+    # slowest lane needs, so the cut run's 16 lanes count fewer than 512
+    # would (PERF.md, the K5a-c rows)
+    launches_from = {k: f"the timed window of phase {p}'s first bench run: B = 512, N = 15, "
+                        f"10 steps" for p, ks in PATH_KERNELS.items() for k in ks}
+    launches_from |= {f"{k}_n60": (f"the timed window of phase 14's cut bench run: B = "
+                                   f"{LONG_SMOKE['B']}, N = {LONG_N}, {LONG_SMOKE['n_rep']} steps")
+                      for k in NEWTON}
+    for k in ("factor_predictor", "resolve", "ipm_iteration", "fused_response", "backward_K",
+              "factor_predictor_n60", "resolve_n60"):
+        bound_ms, bound_by = (kernel_bound(k[:-4], N=LONG_N) if k.endswith("_n60")
+                              else kernel_bound(k))
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": launches[k], "max_abs_err": main_err[k], "ms": times[k][0],
             "plain_ms": times[k][1], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": None, "launches_from": launches_from[k],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

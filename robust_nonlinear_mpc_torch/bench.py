@@ -29,7 +29,13 @@ faster per call on the H100 in alternating pairs: PERF.md), -1 the
 hand-written backward kernel. The fused-kernel configuration is
 kkt="fused_iter", response="fused".
 
-Prints ONE JSON line. Usage: python -m robust_nonlinear_mpc_torch.bench
+Prints ONE JSON line. Usage:
+  python -m robust_nonlinear_mpc_torch.bench [--N 15] [--batch 512]
+      [--kkt fused|fused_iter|riccati] [--response streaming|materialized|fused]
+      [--sls-block 0]
+The record's `horizon_N`, `batch`, `kkt`, `response` and `sls_block` say
+what ran (`--N 60` is the long-horizon configuration, on which the JAX
+bench runs its windowed Newton kernels).
 """
 
 from __future__ import annotations
@@ -102,30 +108,22 @@ def require_cuda():
         raise RuntimeError("TF32 matmuls must stay off on the solver path")
 
 
-def seed_nominal(m, solver, x0s):
+def seed_nominal(solver, x0s):
     """SQP nominal per lane; lanes whose hard SQP fails get the soft-slack
-    solve + hard polish, in chunks (the bench's cold start)."""
-    from robust_nonlinear_mpc_torch.solvers.soft_nlp import soft_fallback_chunk, soft_nlp_solve
-    from robust_nonlinear_mpc_torch.solvers.sqp import sqp_solve
+    solve + hard polish, `soft_fallback_chunk(N)` lanes at a time (the
+    bench's cold start). On the card the solvers' loops run as CUDA graphs,
+    each a WHILE node (`utils.graph_loop.GraphSet`, as in the guarantee
+    drivers' seed); eagerly elsewhere, with the same result. Returns
+    (Xs, Us, the number of lanes whose hard SQP failed)."""
+    from robust_nonlinear_mpc_torch.sim.closed_loop import _nominal, _soft_fallback
+    from robust_nonlinear_mpc_torch.solvers.soft_nlp import soft_fallback_chunk
+    from robust_nonlinear_mpc_torch.utils.graph_loop import GraphSet
 
-    N = solver.N
-    nominal = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s, opts=solver.opts.sqp)
-    Xs, Us = nominal.X.clone(), nominal.U.clone()
-    failed = (~nominal.success).nonzero().flatten()
-    chunk = soft_fallback_chunk(N)
-    for c0 in range(0, failed.numel(), chunk):
-        idx = failed[c0 : c0 + chunk]
-        soft = soft_nlp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[idx],
-                              rho_soft=1e6, rho_soft_l1=1e6)
-        hard = sqp_solve(m, N, solver.Q, solver.R, solver.Qf, x0s[idx],
-                         X_init=soft.X, U_init=soft.U, opts=solver.opts.sqp)
-        ok = hard.success[:, None, None]
-        fb_X = torch.where(ok, hard.X, soft.X)
-        fb_U = torch.where(ok, hard.U, soft.U)
-        use = soft.success[:, None, None]
-        Xs[idx] = torch.where(use, fb_X, Xs[idx])
-        Us[idx] = torch.where(use, fb_U, Us[idx])
-    return Xs, Us, int(failed.numel())
+    graphs = GraphSet(x0s.device)
+    Xs, Us, ok = _nominal(solver, x0s, graphs)
+    Xs, Us = _soft_fallback(solver, x0s, Xs, Us, ok, chunk=soft_fallback_chunk(solver.N),
+                            graphs=graphs)
+    return Xs, Us, int((~ok).sum())
 
 
 def configure(solver, *, kkt="fused", response="streaming", sls_block=0):
@@ -171,7 +169,7 @@ def build_workload(*, device="cuda", dtype=torch.float32, B=512, n_rep=10,
         np.array(X0)[None] + 0.02 * rng.standard_normal((B, m.nx)), dtype=dtype, device=device
     )
     if seed_from is None:
-        Xs, Us, n_fb = seed_nominal(m, solver, x0s)
+        Xs, Us, n_fb = seed_nominal(solver, x0s)
     else:
         if not torch.equal(seed_from.carry[3], x0s):
             raise ValueError("seed_from was built for other initial states")
@@ -218,19 +216,39 @@ def stage_breakdown(wl: BenchWorkload, carry, w, reps=5):
     return out
 
 
+def union_ms(spans):
+    """The length of the union of (start, end) intervals: time covered by
+    at least one of them, overlaps counted once."""
+    busy, end = 0.0, None
+    for s, e in sorted(spans):
+        busy += max(0.0, e - max(s, end if end is not None else s))
+        end = e if end is None else max(end, e)
+    return busy
+
+
 def profile_kernels(wl: BenchWorkload, carry, w_seq, n=3, captured=False):
     """Device kernel time of n steps by kernel name (torch.profiler), and
-    the device busy share: that time over the host wall time of the same n
-    steps run without the profiler, which slows the host side. `captured`:
-    the steps are replays of the step captured from `carry` (captured before
+    the device busy share: the union of the kernel records' intervals
+    (kernels that overlap, as a WHILE body's on its side stream, counted
+    once) over the host wall of the profiled window. The profiler may lose
+    records inside a graph's WHILE bodies: `records_complete` says whether
+    it kept one K1 and one K2 record for each launch the port's counters
+    saw in the window (a captured step's WHILE bodies counted on the
+    device); where it did not, the busy share is too low. `captured`: the
+    steps are replays of the step captured from `carry` (captured before
     either window; the profiler then records the card only), else eager
-    steps. Both windows start from `carry`."""
+    steps. `wall_ms`: the same n steps without the profiler; `profiled_ms`
+    the n steps under it (its start and stop excluded). Both windows start
+    from `carry`."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from robust_nonlinear_mpc_torch.sim.closed_loop import capture_mpc_step
 
     step = capture_mpc_step(wl.solver, carry) if captured else wl.mpc_step
+    launched = step.launched if captured else lambda: Counter(launch_counts())
 
     def steps():
         c = carry
@@ -243,18 +261,28 @@ def profile_kernels(wl: BenchWorkload, carry, w_seq, n=3, captured=False):
     steps()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     activities = [ProfilerActivity.CUDA] + ([] if captured else [ProfilerActivity.CPU])
+    before = launched()
     with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
         steps()
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+    newton = ("factor_predictor", "resolve")
+    window = launched() - before
+    kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    records = {k: sum(f"{k}_kernel" in ev.name for ev in kernels) for k in newton}
+    busy_ms = union_ms([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
     # device rows only: an operator's row repeats the time of its kernels
     rows = sorted(
         ((ev.key, ev.self_device_time_total / 1e3, ev.count)
          for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA),
         key=lambda r: -r[1],
     )
-    busy_ms = sum(r[1] for r in rows)
     return {
-        "steps": n, "captured": captured, "wall_ms": wall_ms, "device_kernel_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms if wall_ms > 0 else None,
+        "steps": n, "captured": captured, "wall_ms": wall_ms, "profiled_ms": profiled_ms,
+        "kernel_records": len(kernels), "device_kernel_ms": sum(r[1] for r in rows),
+        "device_busy_ms": busy_ms, "device_busy_share": busy_ms / profiled_ms,
+        "k1k2_launches": {k: window[k] for k in newton}, "k1k2_records": records,
+        "records_complete": records == {k: window[k] for k in newton},
         "top_kernels": [{"name": k[:120], "ms": ms, "count": c} for k, ms, c in rows[:25]],
     }
 
@@ -471,8 +499,32 @@ def run(wl: BenchWorkload | None = None, n_lat: int = 200):
     return record, carry
 
 
-def main():
-    record, _ = run()
+KKTS = ("fused", "fused_iter", "riccati")
+
+
+def parse_args(argv=None):
+    """The JAX bench's configuration, as options: `--N` (its RNM_BENCH_N),
+    `--batch` (RNM_BENCH_BATCH), `--kkt` (RNM_BENCH_KKT), `--response`
+    (RNM_BENCH_STREAMING) and `--sls-block` (RNM_SLS_BLOCK), each passed
+    to `build_workload`; the defaults are its benchmarked configuration."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--N", type=int, default=15, help="MPC horizon")
+    p.add_argument("--batch", type=int, default=512, help="lanes stepped at once")
+    p.add_argument("--kkt", default="fused", choices=KKTS, help="the IPM's Newton path")
+    p.add_argument("--response", default="streaming", choices=RESPONSES)
+    p.add_argument("--sls-block", type=int, default=0, dest="sls_block",
+                   help="SLS kernels: 0 folded, > 0 column-blocked, -1 the backward kernel")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    require_cuda()
+    wl = build_workload(N=args.N, B=args.batch, kkt=args.kkt, response=args.response,
+                        sls_block=args.sls_block)
+    record, _ = run(wl)
     print(json.dumps(record))
 
 

@@ -664,13 +664,13 @@ int rnm_ipm_iter_f64(void* const* ptrs, int nptrs, int Bsz, int N, int nx, int n
 // dims = (N, nx, nu, ni, ni_f, nw)
 int rnm_ipm_iteration_info_f32(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(ipm_kernel<float>(d[1], d[2]), THREADS,
-                     ipm_bytes<float>(d[0], d[1], d[2], d[3], d[4], &on_chip), out);
+  const size_t bytes = ipm_bytes<float>(d[0], d[1], d[2], d[3], d[4], &on_chip);
+  return kernel_info(ipm_kernel<float>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 int rnm_ipm_iteration_info_f64(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(ipm_kernel<double>(d[1], d[2]), THREADS,
-                     ipm_bytes<double>(d[0], d[1], d[2], d[3], d[4], &on_chip), out);
+  const size_t bytes = ipm_bytes<double>(d[0], d[1], d[2], d[3], d[4], &on_chip);
+  return kernel_info(ipm_kernel<double>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 
 }  // extern "C"

@@ -319,23 +319,23 @@ int rnm_resolve_f64(RNM_RS_ARGS(double)) {
 // dims = (N, nx, nu, ni, ni_f, nw)
 int rnm_factor_predictor_info_f32(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(fp_kernel<float>(d[1], d[2]), THREADS,
-                     fp_bytes<float>(d[0], d[1], d[2], &on_chip), out);
+  const size_t bytes = fp_bytes<float>(d[0], d[1], d[2], &on_chip);
+  return kernel_info(fp_kernel<float>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 int rnm_factor_predictor_info_f64(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(fp_kernel<double>(d[1], d[2]), THREADS,
-                     fp_bytes<double>(d[0], d[1], d[2], &on_chip), out);
+  const size_t bytes = fp_bytes<double>(d[0], d[1], d[2], &on_chip);
+  return kernel_info(fp_kernel<double>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 int rnm_resolve_info_f32(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(rs_kernel<float>(d[1], d[2]), THREADS,
-                     rs_bytes<float>(d[0], d[1], d[2], &on_chip), out);
+  const size_t bytes = rs_bytes<float>(d[0], d[1], d[2], &on_chip);
+  return kernel_info(rs_kernel<float>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 int rnm_resolve_info_f64(const int* d, int* out) {
   bool on_chip;
-  return kernel_info(rs_kernel<double>(d[1], d[2]), THREADS,
-                     rs_bytes<double>(d[0], d[1], d[2], &on_chip), out);
+  const size_t bytes = rs_bytes<double>(d[0], d[1], d[2], &on_chip);
+  return kernel_info(rs_kernel<double>(d[1], d[2]), THREADS, bytes, out, on_chip ? 1 : 0);
 }
 
 const char* rnm_error_string(int err) {

@@ -4,7 +4,8 @@
 // source exports one `rnm_<kernel>_info_<type>(const int* dims, int* out)`
 // built on this, with dims = (N, nx, nu, ni, ni_f, nw), so the numbers are
 // those of the instantiation and the shared-memory size that a launch at
-// these widths would use.
+// these widths would use, and whether that launch keeps a lane's sequences
+// in shared memory (-1 for a kernel without that choice).
 
 #pragma once
 
@@ -13,12 +14,12 @@
 
 namespace rnm {
 
-constexpr int INFO_WORDS = 5;
+constexpr int INFO_WORDS = 6;
 
 // out = (registers per thread, static shared bytes, dynamic shared bytes,
-//        local bytes per thread, resident blocks per SM)
+//        local bytes per thread, resident blocks per SM, on chip: 1, 0 or -1)
 template <typename Kern>
-int kernel_info(Kern* kernel, int threads, size_t dyn_smem, int* out) {
+int kernel_info(Kern* kernel, int threads, size_t dyn_smem, int* out, int on_chip = -1) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -35,6 +36,7 @@ int kernel_info(Kern* kernel, int threads, size_t dyn_smem, int* out) {
   out[2] = (int)dyn_smem;
   out[3] = (int)fa.localSizeBytes;
   out[4] = blocks;
+  out[5] = on_chip;
   return 0;
 }
 

@@ -91,19 +91,22 @@ def kernel_info(name, dtype, Bsz, N, nx, nu, ni, ni_f, nw=None):
     the CUDA runtime (`cudaFuncGetAttributes`, `cudaOccupancyMaxActive
     BlocksPerMultiprocessor`): registers per thread, static and dynamic
     shared bytes per block, local (spill) bytes per thread, resident blocks
-    per SM, and the waves a grid of one block per lane (`Bsz`) takes on the
-    current card."""
+    per SM, the waves a grid of one block per lane (`Bsz`) takes on the
+    current card, and `on_chip`: whether the launch keeps a lane's stage
+    sequences in shared memory (else it streams them from global memory;
+    None for a kernel without that choice)."""
     lib = build_extension()
     dims = (ctypes.c_int * 6)(N, nx, nu, ni, ni_f, nx if nw is None else nw)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     err = getattr(lib, f"rnm_{name}_info_{suffix(dtype)}")(dims, out)
     if err != 0:
         raise RuntimeError(f"{name} info failed: {lib.rnm_error_string(err).decode()}")
-    regs, static, dynamic, local, blocks = list(out)
+    regs, static, dynamic, local, blocks, on_chip = list(out)
     sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
     waves = -(-Bsz // (sms * blocks)) if blocks > 0 else None
     return {"registers": regs, "static_smem": static, "dynamic_smem": dynamic,
-            "local_bytes": local, "blocks_per_sm": blocks, "sms": sms, "waves": waves}
+            "local_bytes": local, "blocks_per_sm": blocks, "sms": sms, "waves": waves,
+            "on_chip": None if on_chip < 0 else bool(on_chip)}
 
 
 def suffix(dtype):

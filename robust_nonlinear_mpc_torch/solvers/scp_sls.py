@@ -129,7 +129,10 @@ class SCPSLSSolver(nn.Module):
         buf = lambda name, a: self.register_buffer(
             name, torch.as_tensor(np.asarray(a, float), dtype=dtype, device=device)
         )
-        for name, a in (("Q", Q), ("R", R), ("Qf", Qf), ("Q_reg", Q_reg),
+        # `Qf` is the nominal solves' terminal weight, which
+        # `generate_lqr_controller` overwrites as the reference does; the SLS
+        # problem keeps the weight it was built with (`Qf_problem`)
+        for name, a in (("Q", Q), ("R", R), ("Qf", Qf), ("Qf_problem", Qf), ("Q_reg", Q_reg),
                         ("R_reg", R_reg), ("Q_reg_f", Q_reg_f)):
             buf(name, a)
         G = np.asarray(m.G.cpu(), float)
@@ -144,7 +147,7 @@ class SCPSLSSolver(nn.Module):
 
     @property
     def prob(self) -> SLSProblem:
-        stat = QPStatics(Hx=2 * self.Q, Hu=2 * self.R, HxN=2 * self.Qf,
+        stat = QPStatics(Hx=2 * self.Q, Hu=2 * self.R, HxN=2 * self.Qf_problem,
                          Gx=self.Gx, Gu=self.Gu, Gf=self.Gf)
         return SLSProblem(stat=stat, regs=SLSRegs(self.Q_reg, self.R_reg, self.Q_reg_f),
                           E=self.E)
@@ -174,7 +177,8 @@ class SCPSLSSolver(nn.Module):
         A, B, c = self.m.linearize_traj(X, U)
         g_res = self.g - X[:, :N] @ self.Gx.T - U @ self.Gu.T
         gf_res = self.gf - X[:, N] @ self.Gf.T
-        qx = torch.cat([2 * (X[:, :N] @ self.Q.T), (2 * (X[:, N] @ self.Qf.T))[:, None]], dim=1)
+        qx = torch.cat([2 * (X[:, :N] @ self.Q.T), (2 * (X[:, N] @ self.Qf_problem.T))[:, None]],
+                       dim=1)
         qu = 2 * (U @ self.R.T)
         return A, B, c, qx, qu, g_res, gf_res, x0 - X[:, 0]
 
@@ -219,7 +223,7 @@ class SCPSLSSolver(nn.Module):
         cost_nlp = (
             ((XN @ self.Q.T) * XN).sum(dim=(1, 2))
             + ((U_new @ self.R.T) * U_new).sum(dim=(1, 2))
-            + (X_new[:, N] * (X_new[:, N] @ self.Qf.T)).sum(dim=1)
+            + (X_new[:, N] * (X_new[:, N] @ self.Qf_problem.T)).sum(dim=1)
         )
         need = ~(success & lane_all_finite(X_new, U_new))
         if active is not None:
@@ -536,10 +540,11 @@ class SCPSLSSolver(nn.Module):
     def generate_lqr_controller(self):
         """Infinite-horizon LQR at the origin by scipy's DARE on the host.
 
-        The reference also overwrites Qf with the DARE solution without
-        rebuilding its problem; here Qf stays as it is, since the port's
-        problem data are buffers read on every solve (an overwrite would
-        change the SLS problem too). The solution is returned as "P"."""
+        As the reference does, overwrites `Qf` with the DARE solution P, so
+        the nominal SQP solves that follow (`solve_nominal_trajectory`, the
+        seed of `solve`, the batched drivers' seeds) take P as their terminal
+        weight; the SLS problem keeps the weight it was built with
+        (`Qf_problem`), as the reference's built problem arrays do."""
         from scipy.linalg import solve_discrete_are
 
         nx, nu = self.m.nx, self.m.nu
@@ -549,6 +554,7 @@ class SCPSLSSolver(nn.Module):
         P = solve_discrete_are(A, B, Qh, Rh)
         K = np.linalg.solve(Rh + B.T @ P @ B, B.T @ P @ A)
         self.K = K
+        self.Qf = torch.as_tensor(P, dtype=self.dtype, device=self._device)
         return {"K": K, "P": P, "A": A, "B": B, "controller": lambda x: -K @ np.asarray(x)}
 
     def eval_deviation_mismatch(self, e, d):

@@ -41,7 +41,9 @@ NX, NU, NI, NI_F = 17, 4, 42, 34
 BATCH, HORIZON = 512, 15
 # calls of a wrapper in one profiler window
 CALLS = 30
-MAX_WINDOWS = 5
+# the profiler drops records in most windows of some kernels (K6: 25 of 30
+# recorded in 9 of 10 windows on an H100), so a complete one may take many
+MAX_WINDOWS = 20
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 

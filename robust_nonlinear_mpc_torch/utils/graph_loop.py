@@ -327,7 +327,10 @@ class CapturedLoop:
         self.captured = device.type == "cuda" if capture is None else capture
         self.graph = None
         if self.captured:
-            loop = lambda st, *a: device_while(cond, body, st, *a, cap=self.cap)
+            # no reference to self: a cycle would leave the loop's pools to
+            # the cyclic collector, which may free them inside a later capture
+            cap = self.cap
+            loop = lambda st, *a: device_while(cond, body, st, *a, cap=cap)
             self.graph = CapturedCall(loop, (state, *args), pool=pool)
 
     @property

@@ -2,7 +2,8 @@
 versions on the same card inputs (float64 to 1e-10, float32 to 1e-4,
 relative to each output's largest entry): the fused Newton kernels and the
 whole-iteration kernel at the main path's shape, a ragged batch and a long
-horizon (the Newton kernels also at narrow inputs), at a batch that leaves
+horizon (the Newton kernels also at the long horizon's full batch, B = 512,
+N = 60, and at narrow inputs), at a batch that leaves
 the last wave part-filled and at the other models' widths and the general
 (runtime-width) path; the response kernel (float32 only) and the SLS
 backward kernel at the main path's shape, a ragged batch, a long horizon,
@@ -12,7 +13,9 @@ one step against the CPU on its first 16 lanes; the RTI step captured as
 one CUDA graph against the eager step at B = 529 over 3 steps, with the
 eager step's kernel launches; the condensed IPM (torch ops) on the card
 against the CPU; the TF32 precision switches restoring the process's
-setting; the WHILE nodes of captured loops (chip_smoke phase 2b).
+setting; the WHILE nodes of captured loops (chip_smoke phase 2b), and a
+dropped captured loop (alone and in a GraphSet) freed without the cyclic
+collector.
 
 Needs an NVIDIA GPU with nvcc (sm_90a); skipped elsewhere. On the card,
 from the repository root:
@@ -37,7 +40,8 @@ def smoke():
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("Bsz,N,nu", [(512, 15, 4), (37, 15, 4), (8, 60, 4), (8, 15, 1), (8, 15, 2)])
+@pytest.mark.parametrize("Bsz,N,nu", [(512, 15, 4), (37, 15, 4), (8, 60, 4), (512, 60, 4),
+                                      (8, 15, 1), (8, 15, 2)])
 def test_kernels_match_plain(smoke, Bsz, N, nu, dtype):
     for (kernel, output), (rel, _) in smoke.compare_kernels(Bsz, N, nu, dtype).items():
         assert rel <= smoke.TOL[dtype], f"{kernel} {output}: {rel:.3e}"
@@ -196,3 +200,33 @@ def test_device_while_exits_on_the_device(smoke):
     record = smoke.check_device_while()
     assert record["a_runs"] == record["d_runs"] == [7, 23, 0, 100]
     assert all(r["bit_for_bit"] and r["launches"] == r["eager_launches"] for r in record["e"])
+
+
+@pytest.mark.parametrize("holder", ["loop", "graph_set"])
+def test_dropped_captured_loop_needs_no_cyclic_collector(smoke, holder):
+    # a captured loop, and a GraphSet holding one and a captured call, free
+    # their WHILE body's memory pool as soon as they are dropped: left to
+    # the cyclic collector, the pool could be destroyed inside a later
+    # capture, which the allocator refuses (a long-horizon bench seed's
+    # graphs, dropped before the step's capture)
+    import gc
+    import weakref
+
+    from robust_nonlinear_mpc_torch.utils.graph_loop import CapturedLoop, GraphSet
+
+    x = torch.zeros(4, device="cuda")
+    body, cond = lambda st: st + (st < 3), lambda st: (st < 3).any()
+    if holder == "loop":
+        held = CapturedLoop(body, x, 10, cond=cond)
+        out = held(x)
+    else:
+        held = GraphSet(x.device)
+        out = held.call("shift", lambda st: st - 1, held.loop("count", cond, body, x, cap=10))
+    assert out.tolist() == ([3.0] if holder == "loop" else [2.0]) * 4
+    ref = weakref.ref(held)
+    gc.disable()
+    try:
+        del held
+        assert ref() is None
+    finally:
+        gc.enable()

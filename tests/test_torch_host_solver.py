@@ -7,8 +7,10 @@ experiment (`make_pendulum_problem`) at N = 8, 3 steps:
   SCP iterations): the npz keys equal, every trajectory within 1e-8;
 * `SCPSLSSolver.solve` from a fresh solver: the result dict's keys equal,
   success and iteration counts equal, every array within 1e-8;
-* `generate_lqr_controller` (K, P, A, B) and `eval_deviation_mismatch`
-  within 1e-8; `solve_profiled` (RTI 1/1, the only mode it splits into
+* `generate_lqr_controller` (K, P, A, B, and Qf overwritten by P), then
+  on the same solvers the nominal plan (which takes P as its terminal
+  weight, while the SLS problem keeps its own) and
+  `eval_deviation_mismatch`, within 1e-8; `solve_profiled` (RTI 1/1, the only mode it splits into
   stages) against JAX's within 1e-8;
 * the rocket until convergence at N = 4, B = 3, 2 steps, through `interop`.
 """
@@ -114,11 +116,14 @@ def test_lqr_and_deviation_mismatch_match_jax():
     for k in ("K", "P", "A", "B"):
         _close(got[k], ref[k], k)
     _close(got["controller"](X0_PEND), ref["controller"](X0_PEND), "controller")
-    # JAX's generate_lqr_controller also overwrites Qf for its nominal SQP
-    # (the port keeps Qf): the mismatch check starts from fresh solvers
-    m, solver, tm, tsolver = _pendulum()
+    # both overwrite Qf with P for the nominal SQP that follows, on the same solvers
+    _close(tsolver.Qf.numpy(), solver.Qf, "Qf")
     assert solver.solve_nominal_trajectory(X0_PEND)
     assert tsolver.solve_nominal_trajectory(X0_PEND)
+    _close(tsolver._X[0].numpy(), solver._X, "nominal X after LQR")
+    _close(tsolver._U[0].numpy(), solver._U, "nominal U after LQR")
+    # the SLS problem keeps the terminal weight it was built with, in both
+    _close(tsolver.prob.stat.HxN.numpy(), solver.prob.stat.HxN, "HxN")
     rng = np.random.default_rng(4)
     e, d = 0.01 * rng.standard_normal((4, N + 1)), 0.01 * rng.standard_normal((1, N))
     ref, got = solver.eval_deviation_mismatch(e, d), tsolver.eval_deviation_mismatch(e, d)

@@ -38,6 +38,7 @@ def test_port_has_sources():
                 "entry.py", "tools/column_scaling.py", "tools/stage_profile.py",
                 "tools/bench_sweep.py", "tools/kernel_bench.py", "tools/dtype_deviation.py",
                 "tools/converged_probe.py", "tools/n60_probe.py", "tools/precompile.py",
+                "tools/fused_n60_qp_probe.py",
                 "ops/graph_while.py", "utils/graph_loop.py", "expe/published_rows.py"):
         assert PORT / rel in SOURCES, rel
     assert (PORT / "native" / "rnm_qp.cpp").is_file()

@@ -223,3 +223,33 @@ def test_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
             build()
     assert Rocket(device="cpu").G.device.type == "cpu"
+
+
+def test_bench_options_pass_to_build_workload(monkeypatch, capsys):
+    """The bench twin's options (the JAX bench's RNM_BENCH_N, _BATCH, _KKT,
+    _STREAMING and RNM_SLS_BLOCK) go straight to `build_workload`; without
+    options it builds the benchmarked configuration."""
+    from robust_nonlinear_mpc_torch import bench
+
+    seen = []
+    monkeypatch.setattr(bench, "require_cuda", lambda: None)
+    monkeypatch.setattr(bench, "build_workload", lambda **kw: seen.append(kw) or kw)
+    monkeypatch.setattr(bench, "run", lambda wl: ({"horizon_N": wl["N"], "batch": wl["B"]}, None))
+    bench.main([])
+    bench.main(["--N", "60", "--batch", "512", "--kkt", "riccati", "--response", "fused",
+                "--sls-block", "-1"])
+    assert seen == [dict(N=15, B=512, kkt="fused", response="streaming", sls_block=0),
+                    dict(N=60, B=512, kkt="riccati", response="fused", sls_block=-1)]
+    assert capsys.readouterr().out.splitlines()[-1] == '{"horizon_N": 60, "batch": 512}'
+    with pytest.raises(SystemExit):
+        bench.main(["--kkt", "pallas"])
+
+
+def test_bench_union_ms_counts_overlaps_once():
+    """The busy time of `bench.profile_kernels`: kernels that overlap (a
+    WHILE body's on its side stream) count once, gaps not at all."""
+    from robust_nonlinear_mpc_torch import bench
+
+    assert bench.union_ms([]) == 0.0
+    assert bench.union_ms([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0), (5.5, 5.75)]) == 4.0
+    assert bench.union_ms([(4.0, 5.0), (0.0, 1.0)]) == 2.0
